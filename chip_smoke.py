@@ -1,0 +1,516 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch / H100 port (``src/repro_torch``).
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from the sources in the checkout and
+drives the port's main path — the scaling-loss diagnosis — on the card:
+
+1. device — the card's name and power limit, and the kernels' build time;
+2. kernels vs plain — ``ab_fused`` and ``ns_fused`` (through every op that
+   launches them) against their plain PyTorch versions on the same card
+   tensors, in float64 and float32, at P = 65536 processes, V = 56
+   vertices, S = 4 scales, k = 64; with each kernel's time, its plain
+   version's, its bound and one library yardstick;
+3. bank — the six ground-truth scenarios at 2048 processes through
+   ``backend="torch"`` on the card, each equal to the numpy backend's run
+   and above its accuracy floors;
+4. fleet — a 65536-process sharded fleet (tinyllama train trace, data
+   stall) with a four-scale series: detect, rewrite 16 rows, detect
+   again, which must upload exactly those rows, launch one abnormal and
+   one non-scalable op, and equal the numpy backend's answer.
+
+The kernels' launch counts are reset just before phase 3 and read just
+after phase 4.  It exits non-zero, printing no result, when any check
+fails, when there is no CUDA card, or when the port is not next to it.
+The last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+P, V, S, K = 65536, 56, 4, 64
+K_WIDE = 1500                   # > 1024 candidates in a column's list
+N_TOP = 20
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+FP_OPS_PER_S = 67e12            # float32 outside the tensor cores (same)
+TOL = {"float64": 1e-12, "float32": 1e-4}
+BANK_PROCS = 2048
+FLEET_SCALES = (8192, 16384, 32768, 65536)
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
+        "nvidia-smi unavailable"
+
+
+def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after warm-up."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: int, n_ops: int):
+    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / FP_OPS_PER_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+# -- phase 2 inputs ------------------------------------------------------
+
+def make_inputs(seed: int = 0):
+    """Seeded (S, P, V) times and variances shaped like a real fleet:
+    per-vertex base times and log-log scaling slopes (some vertices scale,
+    some do not) with process noise, ~2% stragglers (so columns
+    flag far more than k entries), ~1% dead readings, values on a 1e-6
+    grid (so scores tie), and a root-child subset for the step time."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(1e-3, 1e-2, (1, 1, V))
+    slope = rng.uniform(-1.2, 0.2, (1, 1, V))          # per-vertex scaling
+    scale = 2.0 ** np.arange(1 - S, 1.0)[:, None, None]   # P/8 .. P
+    t = base * scale ** slope * (1.0 + 0.05 * rng.standard_normal((S, P, V)))
+    t *= np.where(rng.random((S, P, V)) < 0.02, 3.0, 1.0)
+    t = np.round(np.abs(t), 6)
+    t[rng.random((S, P, V)) < 0.01] = 0.0
+    var = rng.uniform(0.0, 1e-6, (S, P, V))
+    present = rng.random((S, V)) > 0.05
+    present[-1] = True
+    top = np.sort(rng.choice(V, N_TOP, replace=False)).astype(np.int32)
+    dead = rng.random(P) < 0.08
+    return t, var, present, top, dead
+
+
+def rel_err(got, want) -> float:
+    """Normwise relative error max|got - want| / max|want|."""
+    d = (got.double() - want.double()).abs().max().item()
+    scale = want.double().abs().max().item()
+    return d / scale if scale > 0 else d
+
+
+def abs_err(got, want) -> float:
+    g, w = got.double(), want.double()
+    same = (g == w) | (g.isnan() & w.isnan())
+    return 0.0 if bool(same.all()) else (g - w).abs().max().item()
+
+
+def card_tensors(dt):
+    import torch
+    t_np, var_np, present_np, top_np, dead_np = make_inputs()
+    t = torch.from_numpy(t_np).to("cuda", dt)
+    var = torch.from_numpy(var_np).to("cuda", dt)
+    present = torch.from_numpy(present_np).to("cuda")
+    top = torch.from_numpy(top_np).to("cuda")
+    logp = torch.log(torch.tensor([P // 8, P // 4, P // 2, P], dtype=dt,
+                                  device="cuda"))
+    return t, var, present, top, logp, dead_np
+
+
+def phase_kernels():
+    """Every op that launches a kernel, against the plain version on the
+    same tensors, in float64 and float32; returns each kernel's max
+    absolute error in float64."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.detect_fused import ops, ref
+
+    err = {"ab_fused": 0.0, "ns_fused": 0.0}
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).split(".")[1]
+        tol = TOL[name]
+        t, var, present, top, logp, dead_np = card_tensors(dt)
+        live_t = t[-1].contiguous()
+        blocks = list(live_t.chunk(8))
+        vblocks = list(var[-1].contiguous().chunk(8))
+
+        # ab_fused: full fleet, degraded fleet, external step time, a quiet
+        # fleet (the -inf tail), and a k wider than a block
+        live_rows = np.flatnonzero(~dead_np)
+        pad = np.zeros(P, np.int64)
+        pad[:live_rows.size] = live_rows
+        mask = np.zeros(P, bool)
+        mask[:live_rows.size] = True
+        live_d = torch.from_numpy(pad).to("cuda")
+        valid_d = torch.from_numpy(mask).to("cuda")
+        quiet = torch.full((P, V), 0.25, dtype=dt, device="cuda")
+        cases = {   # case: (op args, plain-version args, k)
+            "full": (dict(ts=blocks), (live_t, None, {}), K),
+            "degraded": (dict(ts=blocks, live=live_d, valid=valid_d),
+                         (live_t.index_select(0, live_d), valid_d, {}), K),
+            "step": (dict(ts=[live_t], step_time=0.05),
+                     (live_t, None, dict(step_time=0.05)), K),
+            "quiet": (dict(ts=[quiet]), (quiet, None, {}), K),
+            # more candidates per column than a block has threads
+            "wide": (dict(ts=blocks), (live_t, None, {}), K_WIDE),
+        }
+        for case, (kw, (tp, vp, rk), k) in cases.items():
+            ts = kw.pop("ts")
+            got = ops.fused_abnormal(ts, top, 1.3, 1e-3, k, **kw)
+            want = ref.abnormal(tp, vp, top, 1.3, 1e-3, k, **rk)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], want[0]), f"ab {case} {name}: order")
+            check(torch.equal(got[1], want[1]), f"ab {case} {name}: scores")
+            check(int(got[2]) == int(want[2]), f"ab {case} {name}: count "
+                  f"{int(got[2])} != {int(want[2])}")
+            check(torch.equal(got[3], want[3]), f"ab {case} {name}: typical")
+            if dt == torch.float64 and case != "quiet":
+                err["ab_fused"] = max(err["ab_fused"], abs_err(got[1], want[1]),
+                                      abs_err(got[3], want[3]))
+            if case != "quiet":
+                check(int(got[2]) > k, f"ab {case}: only {int(got[2])} "
+                      "flags, the select path went untested")
+            print(f"  ab_fused {case:8s} {name}: order/scores/count/typical "
+                  f"exact, {int(got[2])} flagged")
+
+        # ns_fused: stacked (in-kernel and host total), live + 3 hist,
+        # merge column
+        def ns_check(tag, got, want):
+            for i, part in enumerate(("M", "slope", "share")):
+                e = rel_err(got[i], want[i])
+                check(e <= tol, f"ns {tag} {name}: {part} rel err {e}")
+                if dt == torch.float64:
+                    err["ns_fused"] = max(err["ns_fused"],
+                                          abs_err(got[i], want[i]))
+            check(torch.equal(got[3], want[3]), f"ns {tag} {name}: flags")
+            print(f"  ns_fused {tag:8s} {name}: M/slope/share within {tol}, "
+                  f"flags exact ({int(got[3].sum())} flagged)")
+
+        kw = dict(ideal_slope=-1.0, slope_margin=0.35, min_share=0.0)
+        hist0 = torch.zeros((4, 0, V), dtype=dt, device="cuda")
+        ns_check("stacked", ops.fused_non_scalable(
+            t, var, logp, present, top_idx=top, **kw),
+            ref.non_scalable(t, var, hist0, logp, present, top, **kw))
+        ns_check("host_tot", ops.fused_non_scalable(
+            t, var, logp, present, total_max=0.125, **kw),
+            ref.non_scalable(t, var, hist0, logp, present, top,
+                             total_max=0.125, **kw))
+        hist = ref.merge_all_stack(t[:3], var[:3])
+        ns_check("live", ops.fused_non_scalable_live(
+            blocks, vblocks, hist, logp, present, top, **kw),
+            ref.non_scalable(live_t[None], var[-1][None], hist, logp,
+                             present, top, **kw))
+        col = ops.merge_scale_column(blocks, vblocks)
+        e = rel_err(col, ref.merge_blocks(blocks, vblocks))
+        check(e <= tol, f"merge column {name}: rel err {e}")
+        print(f"  ns_fused merge    {name}: column within {tol}")
+
+    return err
+
+
+def time_kernels():
+    """Each kernel at the main path's shapes in float64 (the fleet's live
+    scale: one 65536 x 56 matrix, three historical columns), its plain
+    version on the same tensors, one library yardstick, and its bound."""
+    import torch
+    from repro_torch.kernels.detect_fused import kernel, ref
+
+    t, var, present, top, logp, _ = card_tensors(torch.float64)
+    live_t = t[-1].contiguous()
+    tl, vl = live_t[None], var[-1].contiguous()[None]
+    hist = ref.merge_all_stack(t[:3], var[:3])
+    kw = dict(ideal_slope=-1.0, slope_margin=0.35, min_share=0.0)
+    keys = ref.to_key(live_t)
+    # read t and top once; write order, scores, count, typical once
+    ab_bytes = live_t.numel() * 8 + top.numel() * 4 + K * 12 + V * 8 + 4
+    # read t, var, hist, logp, present, top once; write M, slope, share,
+    # flags once
+    ns_bytes = (8 * (2 * tl.numel() + hist.numel() + logp.numel()
+                     + 4 * S * V + 2 * 4 * V)
+                + present.numel() + 4 * top.numel() + 4 * V)
+    return {
+        "ab_fused": dict(
+            ms=cuda_ms(lambda: kernel.ab_fused(live_t, None, top, 1.3, 1e-3,
+                                               K)),
+            plain_ms=cuda_ms(lambda: ref.abnormal(live_t, None, top, 1.3,
+                                                  1e-3, K)),
+            # torch.sort of the keys down each column: the closest single
+            # library call (it finds every order statistic, not two)
+            library_ms=cuda_ms(lambda: torch.sort(keys, dim=0)),
+            bound=bound_ms(ab_bytes, live_t.numel() * 8 + P * N_TOP)),
+        "ns_fused": dict(
+            ms=cuda_ms(lambda: kernel.ns_fused(tl, vl, hist, logp, present,
+                                               top, **kw)),
+            plain_ms=cuda_ms(lambda: ref.non_scalable(tl, vl, hist, logp,
+                                                      present, top, **kw)),
+            library_ms=None,           # no single library call merges + fits
+            bound=bound_ms(ns_bytes, tl.numel() * 7 + 4 * V * S * 12)),
+    }
+
+
+
+# -- phase 3: the scenario bank -------------------------------------------
+
+def phase_bank():
+    from repro_torch.scenarios import SCENARIOS, score_result
+
+    for name, sc in SCENARIOS.items():
+        want = sc.run(BANK_PROCS, backend="numpy")
+        t0 = time.perf_counter()
+        got = sc.run(BANK_PROCS, backend="torch", device="cuda")
+        secs = time.perf_counter() - t0
+        check([(a.vid, a.proc, a.time, a.typical) for a in got.abnormal]
+              == [(a.vid, a.proc, a.time, a.typical) for a in want.abnormal],
+              f"bank {name}: abnormal differs from numpy")
+        check([d.vid for d in got.non_scalable]
+              == [d.vid for d in want.non_scalable],
+              f"bank {name}: non-scalable vids differ from numpy")
+        for a, b in zip(got.non_scalable, want.non_scalable):
+            check(abs(a.slope - b.slope) <= 1e-12 * max(abs(b.slope), 1.0),
+                  f"bank {name}: slope {a.slope} vs {b.slope}")
+        check([tuple(p.nodes) for p in got.paths]
+              == [tuple(p.nodes) for p in want.paths],
+              f"bank {name}: paths differ from numpy")
+        check([n for n, _, _ in got.reported]
+              == [n for n, _, _ in want.reported],
+              f"bank {name}: root causes differ from numpy")
+        score = score_result(got)
+        check(score.passes(sc.truth), f"bank {name}: floors {score.row()}")
+        print(f"  {name:26s} {secs:7.3f} s  {score.row()}  "
+              f"abnormal={len(got.abnormal)} "
+              f"non_scalable={len(got.non_scalable)}")
+
+
+# -- phase 4: the sharded fleet -------------------------------------------
+
+def fleet_series():
+    from repro_torch.core.inject import simulate, vectorized_base_times
+    from repro_torch.scenarios import get_scenario
+
+    sc = get_scenario("data_pipeline_stall")
+    psg, plan, _ = sc.build(FLEET_SCALES[-1])
+    series = {}
+    for n in FLEET_SCALES:
+        @vectorized_base_times
+        def base(procs, vid, n=n):
+            return plan.time_at_scale(procs, vid, n)
+        inject = plan.inject if n == FLEET_SCALES[-1] else None
+        series[n] = simulate(psg, n, base, inject=inject, shards=8).ppg
+    return sc, plan, series
+
+
+def phase_fleet():
+    import numpy as np
+    from repro_torch.core.detect import detect_abnormal, detect_non_scalable
+    from repro_torch.kernels.detect_fused import ops
+
+    t0 = time.perf_counter()
+    sc, plan, series = fleet_series()
+    print(f"  simulate {list(series)} x shards=8: "
+          f"{time.perf_counter() - t0:.1f} s")
+    live = series[FLEET_SCALES[-1]]
+    ab_kw = dict(abnorm_thd=sc.abnorm_thd, top_k=sc.top_k)
+
+    def detect(backend):
+        dev = "cuda" if backend == "torch" else None
+        ns = detect_non_scalable(series, backend=backend, device=dev)
+        ab = detect_abnormal(live, backend=backend, device=dev, **ab_kw)
+        return ns, ab
+
+    def same(got, want, tag):
+        ns, ab = got
+        ns_ref, ab_ref = want
+        check([(a.vid, a.proc, a.time, a.typical) for a in ab]
+              == [(a.vid, a.proc, a.time, a.typical) for a in ab_ref],
+              f"fleet {tag}: abnormal differs from numpy")
+        check([d.vid for d in ns] == [d.vid for d in ns_ref],
+              f"fleet {tag}: non-scalable vids differ from numpy")
+        for a, b in zip(ns, ns_ref):
+            check(abs(a.slope - b.slope) <= 1e-12 * max(abs(b.slope), 1.0),
+                  f"fleet {tag}: slope {a.slope} vs {b.slope}")
+
+    first = detect("torch")
+    same(first, detect("numpy"), "first detect")
+    check(len(first[1]) == sc.top_k, "fleet: first detect flagged too few")
+    view = live.device_view("cuda")
+    rng = np.random.default_rng(1)
+    target = plan.target_vids[0]
+
+    def rewrite(stall: float):
+        # 16 hosts stall at the input vertex for ``stall`` seconds: far
+        # above every other excess, so they must lead the next ranking
+        rows = np.sort(rng.choice(live.n_procs, 16, replace=False))
+        live.perf.set_entries(rows, target, stall)
+        return rows
+
+    rows = rewrite(1.0)
+    ops.reset_launch_counts()
+    ns = detect_non_scalable(series, backend="torch", device="cuda")
+    check(view.last_upload_rows == 16,
+          f"fleet: steady detect uploaded {view.last_upload_rows} rows")
+    ab = detect_abnormal(live, backend="torch", device="cuda", **ab_kw)
+    check(dict(ops.launch_counts) == {"non_scalable_live": 1, "abnormal": 1},
+          f"fleet: steady launches {dict(ops.launch_counts)}")
+    steady = dict(ops.launch_counts)
+    same((ns, ab), detect("numpy"), "steady detect")
+    check({(a.proc, a.vid) for a in ab[:16]}
+          == {(int(r), target) for r in rows},
+          "fleet: the rewritten rows do not lead the ranking")
+    cycle = []
+    for i in range(5):
+        rewrite(1.0 + i)
+        t0 = time.perf_counter()
+        detect("torch")
+        cycle.append((time.perf_counter() - t0) * 1e3)
+    print(f"  steady detect: 16 rows uploaded, launches "
+          f"{steady}; cycle {statistics.median(cycle):.3f}"
+          f" ms (median of 5, host clock, incl. upload)")
+    rewrite(7.0)
+    same(profile_cycle(lambda: detect("torch")), detect("numpy"),
+         "profiled detect")
+
+
+def profile_cycle(fn):
+    """One steady detect cycle under ``torch.profiler``: device time per
+    kernel, and the device's busy share of the cycle's wall time.  Returns
+    ``fn()``'s result.  A profiler that cannot trace the card says so and
+    the run goes on; a failure of the cycle itself fails the smoke."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ran = False
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            try:
+                out = fn()
+                torch.cuda.synchronize()
+                ran = True
+            except Exception as e:
+                raise SmokeFailure(f"profiled detect cycle: "
+                                   f"{type(e).__name__}: {e}") from e
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            rows.append((us / 1e3, e.count, e.key))
+    except SmokeFailure:
+        raise
+    except Exception as e:                     # the profiler's own failure
+        print(f"  profiler: no device trace ({type(e).__name__}: {e})")
+        return out if ran else fn()
+    busy = sum(ms for ms, _, _ in rows)
+    print(f"  profiled cycle: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%), idle {100 - 100 * busy / wall:.1f}%")
+    for ms, n, key in sorted(rows, reverse=True)[:10]:
+        print(f"    {ms:8.4f} ms  x{n:<3d} {key[:90]}")
+    return out
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    try:
+        import torch
+    except ImportError:
+        print("FAIL: torch is not importable", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.kernels.detect_fused import kernel
+    except ImportError as e:
+        print(f"FAIL: the port is not next to this script ({e})",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = smi()
+    try:
+        t0 = time.perf_counter()
+        spent = kernel.build()
+        wall = time.perf_counter() - t0
+        print(f"[device] {card}; kernels built in {wall:.1f} s "
+              + ", ".join(f"{n} {s:.1f} s" for n, s in spent.items()))
+        for n, report in kernel.BUILD_LOG.items():
+            for line in report.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  {n}: {line.strip()}")
+        print(f"[kernels vs plain] P={P} V={V} S={S} k={K}, {card}")
+        err = phase_kernels()
+        timing = time_kernels()
+        for n, tm in timing.items():
+            lib = "null" if tm["library_ms"] is None else \
+                f"{tm['library_ms']:.4f}"
+            print(f"  {n}: {tm['ms']:.4f} ms  plain {tm['plain_ms']:.4f} ms  "
+                  f"bound {tm['bound'][0]:.4f} ms ({tm['bound'][1]})  "
+                  f"library {lib} ms  max_abs_err {err[n]:.3g}  [{card}]")
+        kernel.reset_launches()
+        print(f"[bank] {BANK_PROCS} procs, backend=torch on cuda vs numpy")
+        phase_bank()
+        bank_launches = (kernel.ab_fused.launches, kernel.ns_fused.launches)
+        print(f"  launches in bank: ab_fused {bank_launches[0]}, "
+              f"ns_fused {bank_launches[1]}")
+        # one abnormal detect per scenario, one non-scalable per series
+        check(bank_launches == (6, 1), f"bank launches {bank_launches}")
+        print(f"[fleet] {FLEET_SCALES[-1]} procs, shards=8, "
+              f"scales {FLEET_SCALES}")
+        phase_fleet()
+        launches = {"ab_fused": kernel.ab_fused.launches,
+                    "ns_fused": kernel.ns_fused.launches}
+        for n, c in launches.items():
+            check(c > 0, f"{n} was never launched on the main path")
+        print(f"[kernels] main-path launches (bank + fleet): {launches}")
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    replaces = {"ab_fused": "src/repro/kernels/detect_fused/kernel.py:399",
+                "ns_fused": "src/repro/kernels/detect_fused/kernel.py:227"}
+    rows = []
+    for n, tm in timing.items():
+        rows.append({
+            "name": n, "route": "cuda",
+            "source": f"src/repro_torch/kernels/detect_fused/csrc/{n}.cu",
+            "replaces": replaces[n], "launches": launches[n],
+            "max_abs_err": err[n], "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
+            "bound_by": tm["bound"][1], "library_ms": tm["library_ms"]})
+    print(f"[total] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
+          "(host clock, build included)")
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,52 @@
+"""ScalAna on PyTorch and CUDA: the port of the ``repro`` JAX package.
+
+The layout mirrors ``repro`` module for module (``core/``, ``kernels/``,
+``scenarios/``), so each counterpart sits at the same path.  The package
+imports torch and numpy, never jax and nothing of ``repro``; state made
+by the JAX package crosses over as JSON and numpy trees through
+:func:`repro_torch.convert.from_reference`.
+
+Exports resolve lazily (PEP 562): importing the package costs nothing
+until a name is used.
+"""
+from typing import TYPE_CHECKING
+
+# export name -> submodule that defines it
+_EXPORTS = {
+    "detect_abnormal": "core.detect", "detect_non_scalable": "core.detect",
+    "backtrack": "core.backtrack", "root_causes": "core.backtrack",
+    "render_report": "core.report",
+    "simulate": "core.inject", "simulate_series": "core.inject",
+    "build_ppg": "core.ppg",
+    "PPG": "core.graph", "PSG": "core.graph", "PerfStore": "core.graph",
+    "ShardedStore": "core.shard", "TorchShardView": "core.shard",
+    "from_reference": "convert",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    target = _EXPORTS.get(name)
+    if target is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    module = importlib.import_module(f"{__name__}.{target}")
+    value = getattr(module, name)
+    globals()[name] = value           # cache: resolve each name once
+    return value
+
+
+def __dir__():
+    return __all__
+
+
+if TYPE_CHECKING:                     # static analyzers see eager imports
+    from repro_torch.convert import from_reference
+    from repro_torch.core.backtrack import backtrack, root_causes
+    from repro_torch.core.detect import detect_abnormal, detect_non_scalable
+    from repro_torch.core.graph import PPG, PSG, PerfStore
+    from repro_torch.core.inject import simulate, simulate_series
+    from repro_torch.core.ppg import build_ppg
+    from repro_torch.core.report import render_report
+    from repro_torch.core.shard import ShardedStore, TorchShardView

@@ -1,0 +1,295 @@
+"""Build, binding and wrappers of the hand-written CUDA detection kernels.
+
+Two kernels, each a CUDA C++ source under ``csrc/`` with a plain C
+interface:
+
+* ``ab_fused`` (``csrc/ab_fused.cu``) — abnormal detection over a (P, V)
+  time matrix: step time, masked per-column median by radix selection,
+  flags, exact top-k.  Replaces the JAX package's Pallas
+  ``ab_fused_kernel``.
+* ``ns_fused`` (``csrc/ns_fused.cu``) — non-scalable detection: per-scale
+  merges over rows, historical-column splice, log-log slope fit, share
+  and flags.  Replaces the Pallas ``ns_fused_kernel``; with ``tail=False``
+  it is only the merge stage (``merge_scale_column``).
+
+Each source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
+shared library in the build directory (``build/repro_torch/`` at the
+repository root, which ``.gitignore`` lists), keyed by a hash of the
+source and the flags, and loaded with ``ctypes``.  Nothing is
+compiled or loaded at import time.  The wrappers check device, dtype,
+shape and contiguity, allocate outputs and scratch with ``torch.empty``,
+launch on the current stream without synchronising, raise when the C
+entry reports a CUDA error, and count their launches in a plain integer
+(``ab_fused.launches``, ``ns_fused.launches``).  They take CUDA tensors
+only: the plain versions for CPU tensors are in :mod:`.ref`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"ab_fused": CSRC / "ab_fused.cu", "ns_fused": CSRC / "ns_fused.cu"}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC",
+              # no FMA contraction: every product and sum rounds on its
+              # own, as in the numpy reference
+              "-fmad=false", "-Xptxas", "-v")
+
+AB_THREADS = 1024         # threads of an ab block (csrc/ab_fused.cu NT)
+NS_ROW_TILE = 512         # rows per ns partial block (csrc/ns_fused.cu TP)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+_ARGTYPES = {
+    "ab_fused": [_P, _P, _P, _I, _I, _I, _D, _D, _D, _I, _I,
+                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "ns_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                 _D, _D, _D, _D, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}      # name -> nvcc/ptxas report of the build
+
+
+BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set NVCC or CUDA_HOME")
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile and load the kernels not loaded yet: one ``nvcc`` per
+    source, all started together.  A library already on disk for the same
+    source and flags is loaded without compiling.  Returns the seconds
+    each compile took (0.0 when nothing was compiled); raises with the
+    compiler's report when a build fails."""
+    names = list(SOURCES if names is None else names)
+    todo = [n for n in names if n not in _LIBS]
+    spent = {n: 0.0 for n in names}
+    procs = {}
+    for n in todo:
+        out = _library_path(n)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out, time.perf_counter())
+    failed = []
+    for n, (proc, tmp, out, t0) in procs.items():
+        report, _ = proc.communicate()
+        spent[n] = time.perf_counter() - t0
+        BUILD_LOG[n] = report
+        if proc.returncode != 0:
+            failed.append(f"{n}: nvcc exit {proc.returncode}\n{report}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    for n in todo:
+        lib = ctypes.CDLL(str(_library_path(n)))
+        for dt in ("f64", "f32"):
+            fn = getattr(lib, f"{n}_{dt}")
+            fn.argtypes = _ARGTYPES[n]
+            fn.restype = ctypes.c_int
+        lib.scalana_error_string.argtypes = [ctypes.c_int]
+        lib.scalana_error_string.restype = ctypes.c_char_p
+        _LIBS[n] = lib
+    return spent
+
+
+def _entry(name: str, dtype: torch.dtype):
+    if name not in _LIBS:
+        build([name])
+    suffix = {torch.float64: "f64", torch.float32: "f32"}[dtype]
+    return _LIBS[name], getattr(_LIBS[name], f"{name}_{suffix}")
+
+
+def _check(name: str, t: torch.Tensor, dtype=None, ndim=None, shape=None,
+           device=None) -> None:
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()}-d, expected {ndim}-d")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _float_dtype(t: torch.Tensor) -> torch.dtype:
+    if t.dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"detection kernels take float64 or float32, "
+                        f"not {t.dtype}")
+    return t.dtype
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.scalana_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+
+
+def _key_dtype(dt: torch.dtype) -> torch.dtype:
+    return torch.int64 if dt == torch.float64 else torch.int32
+
+
+def ab_fused(t: torch.Tensor, valid: Optional[torch.Tensor],
+             top_idx: torch.Tensor, abnorm_thd: float, min_share: float,
+             k: int, step_time: Optional[float] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor]:
+    """Abnormal detection over a (P, V) CUDA time matrix.
+
+    ``valid``: (P,) bool live-row mask or None (all live).  ``top_idx``:
+    (n_top,) int32 step-time columns (indices outside [0, V) add
+    nothing).  ``step_time`` overrides the in-kernel step time.  Returns
+    (order (k,) int32 flat vid-major, scores (k,), count () int32,
+    typical (V,)), ranked as :func:`.ref.abnormal` ranks."""
+    dt = _float_dtype(t)
+    _check("t", t, ndim=2)
+    P, V = t.shape
+    dev = t.device
+    if P == 0 or V == 0:
+        raise ValueError("ab_fused: empty time matrix")
+    if P * V >= 2 ** 31:
+        raise ValueError("ab_fused: P * V must fit in int32 flat indices")
+    k = int(k)
+    if not 1 <= k <= P * V:
+        raise ValueError(f"ab_fused: k={k} outside [1, {P * V}]")
+    if valid is not None:
+        _check("valid", valid, dtype=torch.bool, shape=(P,), device=dev)
+    _check("top_idx", top_idx, dtype=torch.int32, ndim=1, device=dev)
+    lib, fn = _entry("ab_fused", dt)
+    nblk = -(-P // AB_THREADS)
+    kc = min(k, P)                  # candidate slots per column
+    empty = torch.empty
+    part_step = empty(nblk, dtype=dt, device=dev)
+    part_live = empty(nblk, dtype=torch.int32, device=dev)
+    cand_key = empty(2 * V * kc, dtype=_key_dtype(dt), device=dev)
+    cand_idx = empty(2 * V * kc, dtype=torch.int32, device=dev)
+    col_count = empty(V, dtype=torch.int32, device=dev)
+    heads = empty(V, dtype=torch.int32, device=dev)
+    order = empty(k, dtype=torch.int32, device=dev)
+    scores = empty(k, dtype=dt, device=dev)
+    count = empty((), dtype=torch.int32, device=dev)
+    typical = empty(V, dtype=dt, device=dev)
+    use_step = step_time is not None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(t.data_ptr(), _ptr(valid), top_idx.data_ptr(),
+                top_idx.numel(), P, V, float(abnorm_thd), float(min_share),
+                float(step_time) if use_step else 0.0, int(use_step), k,
+                part_step.data_ptr(), part_live.data_ptr(),
+                cand_key.data_ptr(), cand_idx.data_ptr(),
+                col_count.data_ptr(), heads.data_ptr(), order.data_ptr(),
+                scores.data_ptr(), count.data_ptr(), typical.data_ptr(),
+                stream)
+    _raise_on(lib, rc, "ab_fused")
+    ab_fused.launches += 1
+    return order, scores, count, typical
+
+
+ab_fused.launches = 0
+
+
+def ns_fused(t: torch.Tensor, var: torch.Tensor, hist: torch.Tensor,
+             logp: torch.Tensor, present: torch.Tensor,
+             top_idx: torch.Tensor, *, ideal_slope: float = 0.0,
+             slope_margin: float = 0.0, min_share: float = 0.0,
+             total_max: Optional[float] = None, tail: bool = True):
+    """Non-scalable detection over (S_d, P, V) CUDA time / variance
+    stacks, with the (4, H, V) historical merged columns prepended.
+
+    ``logp``: (H + S_d,) log process counts; ``present``: (H + S_d, V)
+    bool; ``top_idx``: (n_top,) int32 columns of the reference step time
+    (used unless ``total_max`` is given).  Returns (M (4, H + S_d, V),
+    slope, share, flagged bool), each (4, V) after M.  ``tail=False``
+    runs only the merge stage and returns M (4, S_d, V) (H must be 0)."""
+    dt = _float_dtype(t)
+    _check("t", t, ndim=3)
+    S_d, P, V = t.shape
+    dev = t.device
+    if S_d == 0 or V == 0:
+        raise ValueError("ns_fused: empty stack")
+    _check("var", var, dtype=dt, shape=(S_d, P, V), device=dev)
+    _check("hist", hist, dtype=dt, ndim=3, device=dev)
+    H = hist.shape[1]
+    if hist.shape[0] != 4 or hist.shape[2] != V:
+        raise ValueError(f"ns_fused: hist shape {tuple(hist.shape)}, "
+                         f"expected (4, H, {V})")
+    S_t = H + S_d
+    if tail:
+        _check("logp", logp, dtype=dt, shape=(S_t,), device=dev)
+        _check("present", present, dtype=torch.bool, shape=(S_t, V),
+               device=dev)
+        _check("top_idx", top_idx, dtype=torch.int32, ndim=1, device=dev)
+    elif H:
+        raise ValueError("ns_fused: the merge stage takes no hist")
+    lib, fn = _entry("ns_fused", dt)
+    ntiles = max(-(-P // NS_ROW_TILE), 1)
+    empty = torch.empty
+    part_cnt = empty(S_d * ntiles * V, dtype=torch.int32, device=dev)
+    part_f = empty(S_d * ntiles * 4 * V, dtype=dt, device=dev)
+    M = empty((4, S_t, V), dtype=dt, device=dev)
+    slope = empty((4, V), dtype=dt, device=dev) if tail else None
+    share = empty((4, V), dtype=dt, device=dev) if tail else None
+    flag = empty((4, V), dtype=torch.bool, device=dev) if tail else None
+    use_total = total_max is not None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(t.data_ptr(), var.data_ptr(), _ptr(hist),
+                _ptr(logp) if tail else None,
+                _ptr(present) if tail else None,
+                _ptr(top_idx) if tail else None,
+                top_idx.numel() if tail else 0, S_d, P, V, H,
+                float(ideal_slope), float(slope_margin), float(min_share),
+                float(total_max) if use_total else 0.0, int(use_total),
+                int(tail), part_cnt.data_ptr(), part_f.data_ptr(),
+                M.data_ptr(), _ptr(slope), _ptr(share), _ptr(flag), stream)
+    _raise_on(lib, rc, "ns_fused")
+    ns_fused.launches += 1
+    if not tail:
+        return M
+    return M, slope, share, flag
+
+
+ns_fused.launches = 0
+
+
+def reset_launches() -> None:
+    """Set both kernels' launch counts to 0."""
+    ab_fused.launches = 0
+    ns_fused.launches = 0

@@ -86,3 +86,8 @@ def smoke_batch(cfg, batch=2, seq=32, train=True):
         out["patches"] = jnp.ones((batch, cfg.frontend_len, cfg.d_model),
                                   cfg.cdtype()) * 0.02
     return out
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips where there is none")

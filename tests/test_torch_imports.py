@@ -1,0 +1,134 @@
+"""The port stands alone: it imports neither jax nor the JAX package.
+
+Each check runs in a fresh interpreter whose import system refuses
+``jax`` and ``repro`` (the JAX package), so a stray import anywhere in
+``repro_torch`` fails loudly.  The port's entry points then run a small
+diagnosis on the CPU.  Also: ``backend="torch"`` with no device means the
+card, and raises where there is none.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+BLOCK = textwrap.dedent("""
+    import sys
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+""")
+
+
+def _run(body: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    return subprocess.run([sys.executable, "-c", BLOCK + textwrap.dedent(body)],
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+
+
+MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core",
+           "repro_torch.core.graph", "repro_torch.core.shard",
+           "repro_torch.core.hlo", "repro_torch.core.commdep",
+           "repro_torch.core.ppg", "repro_torch.core.inject",
+           "repro_torch.core.detect", "repro_torch.core.detect_torch",
+           "repro_torch.core.backtrack", "repro_torch.core.report",
+           "repro_torch.kernels", "repro_torch.kernels.detect_fused",
+           "repro_torch.kernels.detect_fused.kernel",
+           "repro_torch.kernels.detect_fused.ops",
+           "repro_torch.kernels.detect_fused.ref", "repro_torch.scenarios"]
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    out = _run(f"""
+        import importlib
+        for name in {MODULES!r}:
+            importlib.import_module(name)
+        assert not any(m == "repro" or m.startswith("repro.")
+                       for m in sys.modules)
+        assert "jax" not in sys.modules
+        print("ok")
+    """)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_run_a_diagnosis_with_jax_and_repro_blocked():
+    out = _run("""
+        from repro_torch import backtrack, render_report, root_causes
+        from repro_torch.scenarios import get_scenario, run_and_score
+        sc = get_scenario("serving_batch_skew")
+        res, score = run_and_score(sc, 512, backend="torch", device="cpu")
+        assert res.abnormal and score.passes(sc.truth), score.row()
+        text = render_report(res.ppg, res.non_scalable, res.abnormal,
+                             res.paths)
+        assert "abnormal" in text.lower()
+        print("ok")
+    """)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_importing_the_port_builds_nothing():
+    # every module imported in a fresh interpreter whose process spawning
+    # and library loading are recorded: no nvcc starts, nothing is loaded
+    out = _run(f"""
+        import ctypes, importlib, subprocess
+        import torch
+        spawned = []
+        class Record(subprocess.Popen):
+            def __init__(self, args, *a, **k):
+                spawned.append(args)
+                super().__init__(args, *a, **k)
+        subprocess.Popen = Record
+        real_cdll = ctypes.CDLL
+        def cdll(name, *a, **k):
+            spawned.append(name)
+            return real_cdll(name, *a, **k)
+        ctypes.CDLL = cdll
+        for name in {MODULES!r}:
+            importlib.import_module(name)
+        from repro_torch.kernels.detect_fused import kernel
+        assert spawned == [], spawned
+        assert kernel._LIBS == {{}} and kernel.BUILD_LOG == {{}}
+        assert kernel.ab_fused.launches == 0 == kernel.ns_fused.launches
+        print("ok")
+    """)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_torch_backend_without_device_means_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from repro_torch.core import detect_abnormal
+    from repro_torch.scenarios import get_scenario
+    res = get_scenario("serving_batch_skew").run(16, backend="numpy")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        detect_abnormal(res.ppg, backend="torch")
+    # "auto" takes the card only where one exists: numpy here
+    assert detect_abnormal(res.ppg, backend="auto") == \
+        detect_abnormal(res.ppg, backend="numpy")
+    # and so does the bank's default
+    assert get_scenario("serving_batch_skew").run(16).key() == res.key()
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels.detect_fused import kernel
+    t = torch.ones(4, 3, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.ab_fused(t, None, torch.zeros(0, dtype=torch.int32), 1.3,
+                        0.01, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.ns_fused(t[None], t[None], torch.zeros(4, 0, 3), None, None,
+                        None, tail=False)
