@@ -20,12 +20,24 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
 4. fleet — a 65536-process sharded fleet (tinyllama train trace, data
    stall) with a four-scale series: detect, rewrite 16 rows, detect
    again, which must upload exactly those rows, launch one abnormal and
-   one non-scalable op, and equal the numpy backend's answer.
+   one non-scalable op, and equal the numpy backend's answer;
+5. model — the flash-attention kernel against its plain version at the
+   reference's sweep and at the full-width tinyllama layer (B=4, nq=32,
+   nkv=4, S=2048, h=64, causal) in float32 and bfloat16, with its time,
+   the plain version's, SDPA's and its bound; then tinyllama-1.1b at full
+   width (22 layers, random weights from a seed): ``train_loss`` through
+   the kernel against the einsum path at tokens (4, 2049) and against the
+   chunked path at (2, 4097), 22 kernel launches per loss; and four
+   128-token prompts served: prefill into a 256-token cache, 32 greedy
+   tokens each, twice (the same tokens), and the prompts decoded token by
+   token from an empty cache agreeing with prefill.
 
-The kernels' launch counts are reset just before phase 3 and read just
-after phase 4.  It exits non-zero, printing no result, when any check
-fails, when there is no CUDA card, or when the port is not next to it.
-The last line is ``{"ok": true, "device": {...}}``.
+The detection kernels' launch counts are reset just before phase 3 and
+read just after phase 4; the flash kernel's just before the model's
+losses and just after its serving run.  It exits non-zero, printing no
+result, when any check fails, when there is no CUDA card, or when the
+port is not next to it.  The last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -46,6 +58,21 @@ FP_OPS_PER_S = 67e12            # float32 outside the tensor cores (same)
 TOL = {"float64": 1e-12, "float32": 1e-4}
 BANK_PROCS = 2048
 FLEET_SCALES = (8192, 16384, 32768, 65536)
+MODEL = "tinyllama-1.1b"
+# (B, nq, nkv, Sq, Sk, h, causal, dtype name): the reference's flash
+# sweep (tests/test_kernels.py) and the full-width tinyllama layer
+FLASH_SWEEP = [
+    (1, 2, 2, 64, 64, 32, True, "float32"),
+    (2, 4, 2, 128, 128, 64, True, "float32"),
+    (1, 8, 1, 128, 128, 64, True, "float32"),
+    (2, 4, 4, 64, 128, 32, False, "float32"),
+    (1, 2, 2, 128, 128, 128, True, "float32"),
+    (1, 4, 2, 64, 64, 64, True, "bfloat16"),
+]
+FLASH_FULL = (4, 32, 4, 2048, 2048, 64, True)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:41
+TRAIN_TOKENS = ((4, 2049), (2, 4097))     # einsum path, then chunked path
+SERVE_B, PROMPT, MAX_LEN, NEW = 4, 128, 256, 32
 
 
 class SmokeFailure(Exception):
@@ -392,11 +419,180 @@ def phase_fleet():
          "profiled detect")
 
 
-def profile_cycle(fn):
-    """One steady detect cycle under ``torch.profiler``: device time per
-    kernel, and the device's busy share of the cycle's wall time.  Returns
-    ``fn()``'s result.  A profiler that cannot trace the card says so and
-    the run goes on; a failure of the cycle itself fails the smoke."""
+# -- phase 5: the model ------------------------------------------------------
+
+def flash_inputs(case, seed):
+    import numpy as np
+    import torch
+    B, nq, nkv, Sq, Sk, h, _, dt = case
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, np.float32))
+            .to("cuda", getattr(torch, dt))
+            for s in ((B, nq, Sq, h), (B, nkv, Sk, h), (B, nkv, Sk, h))]
+
+
+def phase_flash():
+    """The flash kernel against its plain version on the same card
+    tensors; returns the max absolute error at the full-width f32 shape."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    err = 0.0
+    cases = FLASH_SWEEP + [FLASH_FULL + ("float32",),
+                           FLASH_FULL + ("bfloat16",)]
+    for i, case in enumerate(cases):
+        q, k, v = flash_inputs(case, seed=i)
+        causal, h, dt = case[6], case[5], case[7]
+        got = kernel.flash_attention(q, k, v, causal=causal,
+                                     softmax_scale=h ** -0.5)
+        want = ref.attention(q, k, v, causal=causal, softmax_scale=h ** -0.5)
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        tol = FLASH_TOL[dt]
+        ok = bool((d <= tol + tol * want.float().abs()).all())
+        check(ok and bool(torch.isfinite(got).all()),
+              f"flash {case}: max abs err {d.max().item():.3g} (tol {tol})")
+        if case == FLASH_FULL + ("float32",):
+            err = d.max().item()
+        print(f"  flash {case}: max abs err {d.max().item():.3g} "
+              f"within {tol}")
+    return err
+
+
+def time_flash():
+    """The kernel at the full-width f32 layer shape, its plain version and
+    SDPA (the library yardstick, never on the port's path) on the same
+    tensors, and the bound: bytes read once and written once over the HBM
+    rate, 2 B nq S^2 h causal FLOPs over the f32 rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    case = FLASH_FULL + ("float32",)
+    B, nq, nkv, S, _, h, _ = FLASH_FULL
+    q, k, v = flash_inputs(case, seed=0)
+    scale = h ** -0.5
+    n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    return dict(
+        ms=cuda_ms(lambda: kernel.flash_attention(
+            q, k, v, causal=True, softmax_scale=scale)),
+        plain_ms=cuda_ms(lambda: ref.attention(
+            q, k, v, causal=True, softmax_scale=scale), reps=10),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True)),
+        bound=bound_ms(n_bytes, 2 * B * nq * S * S * h))
+
+
+def phase_model():
+    """Full-width tinyllama-1.1b on the card: the kernel path's loss
+    against the einsum and chunked paths, then four requests served."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import CHUNKED_ATTN_THRESHOLD
+
+    cfg = get(MODEL)
+    plain = build_model(cfg)
+    kern = build_model(cfg.replace(use_kernels=True))
+    t0 = time.perf_counter()
+    params = plain.init(plain.generator(0))
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"  init: {plain.param_count()} params, {n_bytes / 1e9:.2f} GB "
+          f"on the card, {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    kernel_losses = 0
+
+    def loss(model, batch):
+        """(loss, seconds on the host clock to a synchronised result)"""
+        t0 = time.perf_counter()
+        value = float(model.train_loss(params, batch)[0])
+        return value, time.perf_counter() - t0
+
+    for B, T in TRAIN_TOKENS:
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, T), dtype=np.int64)).to("cuda")}
+        before = kernel.flash_attention.launches
+        lk, first_k = loss(kern, batch)
+        n = kernel.flash_attention.launches - before
+        l0, first_0 = loss(plain, batch)
+        path = "einsum" if T - 1 <= CHUNKED_ATTN_THRESHOLD else "chunked"
+        check(np.isfinite(lk) and np.isfinite(l0),
+              f"loss at {(B, T)}: {lk}, {l0}")
+        check(abs(lk - l0) < 1e-3, f"loss at {(B, T)}: kernel {lk!r} vs "
+              f"{path} {l0!r}")
+        check(n == cfg.n_layers, f"loss at {(B, T)}: {n} flash launches, "
+              f"expected {cfg.n_layers}")
+        # steady times: median of 3 more of each, in turns
+        secs = {"kernel": [], path: []}
+        for _ in range(3):
+            for name, model in (("kernel", kern), (path, plain)):
+                value, t = loss(model, batch)
+                check(abs(value - l0) < 1e-3, f"loss at {(B, T)}: {name} "
+                      f"gave {value!r} on a later call")
+                secs[name].append(t)
+        kernel_losses += 4
+        print(f"  train_loss tokens {(B, T)}: kernel {lk!r}, {path} {l0!r}, "
+              f"|diff| {abs(lk - l0):.3g}, {n} flash launches; first call "
+              f"kernel {first_k:.3f} s, {path} {first_0:.3f} s; steady "
+              + ", ".join(f"{k} {statistics.median(v):.3f} s"
+                          for k, v in secs.items())
+              + " (median of 3, host clock)")
+    # one kernel-path loss at the first shape under the profiler
+    B, T = TRAIN_TOKENS[0]
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, T), dtype=np.int64)).to("cuda")}
+    got = profile_cycle(lambda: kern.train_loss(params, batch)[0],
+                        "train_loss")
+    kernel_losses += 1
+    check(abs(float(got) - float(plain.train_loss(params, batch)[0])) < 1e-3,
+          "profiled loss differs from the einsum path")
+
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SERVE_B, PROMPT), dtype=np.int64)).to("cuda")
+
+    def serve():
+        logits, cache = plain.prefill(params, {"tokens": prompts}, MAX_LEN)
+        first = logits
+        out = []
+        for _ in range(NEW):
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(tok)
+            logits, cache = plain.decode_step(params, cache, tok)
+        check(int(cache.kv.length[0]) == PROMPT + NEW, "cache length")
+        return first, torch.cat(out, 1)
+
+    t0 = time.perf_counter()
+    first, toks_a = serve()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    _, toks_b = serve()
+    check(torch.equal(toks_a, toks_b), "greedy decode is not deterministic")
+    check(bool(torch.isfinite(first).all()), "prefill logits not finite")
+    cache = plain.init_cache(SERVE_B, MAX_LEN)
+    for i in range(PROMPT):
+        step, cache = plain.decode_step(params, cache, prompts[:, i:i + 1])
+    d = (first[:, -1] - step[:, -1]).abs().max().item()
+    check(d <= 2e-2, f"prefill vs token-by-token decode: max |diff| {d}")
+    print(f"  served {SERVE_B} prompts x {PROMPT} tokens + {NEW} greedy "
+          f"tokens in {secs:.2f} s (host clock); second run identical; "
+          f"prefill vs decode max |diff| {d:.3g}")
+    return kernel_losses
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def profile_cycle(fn, what: str = "detect cycle"):
+    """One steady detect cycle (or ``what``) under ``torch.profiler``:
+    device time per kernel, and the device's busy share of the cycle's
+    wall time.  Returns ``fn()``'s result.  A profiler that cannot trace
+    the card says so and the run goes on; a failure of the cycle itself
+    fails the smoke."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     ran = False
@@ -409,7 +605,7 @@ def profile_cycle(fn):
                 torch.cuda.synchronize()
                 ran = True
             except Exception as e:
-                raise SmokeFailure(f"profiled detect cycle: "
+                raise SmokeFailure(f"profiled {what}: "
                                    f"{type(e).__name__}: {e}") from e
             wall = (time.perf_counter() - t0) * 1e3
         rows = []
@@ -426,7 +622,7 @@ def profile_cycle(fn):
         print(f"  profiler: no device trace ({type(e).__name__}: {e})")
         return out if ran else fn()
     busy = sum(ms for ms, _, _ in rows)
-    print(f"  profiled cycle: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+    print(f"  profiled {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / wall:.1f}%), idle {100 - 100 * busy / wall:.1f}%")
     for ms, n, key in sorted(rows, reverse=True)[:10]:
         print(f"    {ms:8.4f} ms  x{n:<3d} {key[:90]}")
@@ -445,7 +641,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     try:
+        from repro_torch.kernels import _build
         from repro_torch.kernels.detect_fused import kernel
+        from repro_torch.kernels.flash_attention import kernel as flash
     except ImportError as e:
         print(f"FAIL: the port is not next to this script ({e})",
               file=sys.stderr)
@@ -455,11 +653,11 @@ def main() -> int:
     card = smi()
     try:
         t0 = time.perf_counter()
-        spent = kernel.build()
+        spent = _build.build([*kernel.LIBRARIES.values(), flash.LIBRARY])
         wall = time.perf_counter() - t0
         print(f"[device] {card}; kernels built in {wall:.1f} s "
               + ", ".join(f"{n} {s:.1f} s" for n, s in spent.items()))
-        for n, report in kernel.BUILD_LOG.items():
+        for n, report in _build.BUILD_LOG.items():
             for line in report.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {n}: {line.strip()}")
@@ -488,16 +686,36 @@ def main() -> int:
         for n, c in launches.items():
             check(c > 0, f"{n} was never launched on the main path")
         print(f"[kernels] main-path launches (bank + fleet): {launches}")
+        t_model = time.perf_counter()
+        print(f"[model] {MODEL} at full width on the card, {card}")
+        err["flash_attention"] = phase_flash()
+        timing["flash_attention"] = tm = time_flash()
+        print(f"  flash_attention {FLASH_FULL} f32: {tm['ms']:.4f} ms  plain "
+              f"{tm['plain_ms']:.4f} ms  bound {tm['bound'][0]:.4f} ms "
+              f"({tm['bound'][1]})  sdpa {tm['library_ms']:.4f} ms  [{card}]")
+        flash.flash_attention.launches = 0
+        kernel_losses = phase_model()
+        launches["flash_attention"] = flash.flash_attention.launches
+        check(launches["flash_attention"] == 22 * kernel_losses,
+              f"flash launches on the model path: "
+              f"{launches['flash_attention']}")
+        print(f"[model] flash_attention launches on the model path: "
+              f"{launches['flash_attention']}; phase wall time "
+              f"{time.perf_counter() - t_model:.1f} s")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     replaces = {"ab_fused": "src/repro/kernels/detect_fused/kernel.py:399",
-                "ns_fused": "src/repro/kernels/detect_fused/kernel.py:227"}
+                "ns_fused": "src/repro/kernels/detect_fused/kernel.py:227",
+                "flash_attention":
+                    "src/repro/kernels/flash_attention/kernel.py:96"}
+    package = {"ab_fused": "detect_fused", "ns_fused": "detect_fused",
+               "flash_attention": "flash_attention"}
     rows = []
     for n, tm in timing.items():
         rows.append({
             "name": n, "route": "cuda",
-            "source": f"src/repro_torch/kernels/detect_fused/csrc/{n}.cu",
+            "source": f"src/repro_torch/kernels/{package[n]}/csrc/{n}.cu",
             "replaces": replaces[n], "launches": launches[n],
             "max_abs_err": err[n], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],

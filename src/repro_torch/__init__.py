@@ -1,10 +1,12 @@
 """ScalAna on PyTorch and CUDA: the port of the ``repro`` JAX package.
 
-The layout mirrors ``repro`` module for module (``core/``, ``kernels/``,
-``scenarios/``), so each counterpart sits at the same path.  The package
+The layout mirrors ``repro`` module for module (``configs/``, ``core/``,
+``kernels/``, ``models/``, ``scenarios/``), so each counterpart sits at
+the same path.  The package
 imports torch and numpy, never jax and nothing of ``repro``; state made
 by the JAX package crosses over as JSON and numpy trees through
-:func:`repro_torch.convert.from_reference`.
+:func:`repro_torch.convert.from_reference` and
+:func:`repro_torch.convert.params_from_reference`.
 
 Exports resolve lazily (PEP 562): importing the package costs nothing
 until a name is used.
@@ -20,7 +22,8 @@ _EXPORTS = {
     "build_ppg": "core.ppg",
     "PPG": "core.graph", "PSG": "core.graph", "PerfStore": "core.graph",
     "ShardedStore": "core.shard", "TorchShardView": "core.shard",
-    "from_reference": "convert",
+    "from_reference": "convert", "params_from_reference": "convert",
+    "build_model": "models.api",
 }
 
 __all__ = sorted(_EXPORTS)
@@ -42,7 +45,7 @@ def __dir__():
 
 
 if TYPE_CHECKING:                     # static analyzers see eager imports
-    from repro_torch.convert import from_reference
+    from repro_torch.convert import from_reference, params_from_reference
     from repro_torch.core.backtrack import backtrack, root_causes
     from repro_torch.core.detect import detect_abnormal, detect_non_scalable
     from repro_torch.core.graph import PPG, PSG, PerfStore
@@ -50,3 +53,4 @@ if TYPE_CHECKING:                     # static analyzers see eager imports
     from repro_torch.core.ppg import build_ppg
     from repro_torch.core.report import render_report
     from repro_torch.core.shard import ShardedStore, TorchShardView
+    from repro_torch.models.api import build_model

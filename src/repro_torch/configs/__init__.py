@@ -1,0 +1,54 @@
+"""Architecture/shape registry.
+
+``get(name)`` returns the full published config; ``get_smoke(name)`` returns a
+reduced same-family config for CPU tests.  ``ARCHS`` lists the ids the port
+has; ``PENDING`` the ones whose model families are not ported yet (each
+config comes with its model, ROADMAP Slice C).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import (
+    ArchConfig,
+    RunConfig,
+    ShapeConfig,
+    SHAPES,
+    LONG_CONTEXT_FAMILIES,
+    shape_applicable,
+)
+
+_MODULES: Dict[str, str] = {
+    "tinyllama-1.1b": "tinyllama_1_1b",
+}
+
+ARCHS: List[str] = list(_MODULES)
+PENDING: List[str] = [
+    "nemotron-4-15b", "yi-6b", "gemma-7b", "mamba2-130m",
+    "seamless-m4t-medium", "internvl2-2b", "moonshot-v1-16b-a3b",
+    "dbrx-132b", "zamba2-2.7b",
+]
+
+
+def _module(name: str):
+    if name in PENDING:
+        raise KeyError(f"architecture {name!r} is not ported yet "
+                       f"(ROADMAP Slice C); ported: {ARCHS}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get(name: str) -> ArchConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str) -> ArchConfig:
+    return _module(name).smoke()
+
+
+__all__ = [
+    "ArchConfig", "RunConfig", "ShapeConfig", "SHAPES", "ARCHS", "PENDING",
+    "LONG_CONTEXT_FAMILIES", "shape_applicable", "get", "get_smoke",
+]

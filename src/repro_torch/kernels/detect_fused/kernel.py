@@ -12,38 +12,28 @@ interface:
   and flags.  Replaces the Pallas ``ns_fused_kernel``; with ``tail=False``
   it is only the merge stage (``merge_scale_column``).
 
-Each source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
-shared library in the build directory (``build/repro_torch/`` at the
-repository root, which ``.gitignore`` lists), keyed by a hash of the
-source and the flags, and loaded with ``ctypes``.  Nothing is
-compiled or loaded at import time.  The wrappers check device, dtype,
-shape and contiguity, allocate outputs and scratch with ``torch.empty``,
-launch on the current stream without synchronising, raise when the C
-entry reports a CUDA error, and count their launches in a plain integer
-(``ab_fused.launches``, ``ns_fused.launches``).  They take CUDA tensors
+Each source is built on first use by :mod:`repro_torch.kernels._build`
+(``nvcc`` for ``sm_90a``, keyed by a hash of the source and the flags,
+loaded with ``ctypes``).  Nothing is compiled or loaded at import time.
+The wrappers check device, dtype, shape and contiguity, allocate outputs
+and scratch with ``torch.empty``, launch on the current stream without
+synchronising, raise when the C entry reports a CUDA error, and count
+their launches in a plain integer (``ab_fused.launches``,
+``ns_fused.launches``).  They take CUDA tensors
 only: the plain versions for CPU tensors are in :mod:`.ref`.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"ab_fused": CSRC / "ab_fused.cu", "ns_fused": CSRC / "ns_fused.cu"}
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC",
-              # no FMA contraction: every product and sum rounds on its
-              # own, as in the numpy reference
-              "-fmad=false", "-Xptxas", "-v")
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import check as _check, ptr as _ptr
 
+CSRC = Path(__file__).resolve().parent / "csrc"
 AB_THREADS = 1024         # threads of an ab block (csrc/ab_fused.cu NT)
 NS_ROW_TILE = 512         # rows per ns partial block (csrc/ns_fused.cu TP)
 _P = ctypes.c_void_p
@@ -55,94 +45,19 @@ _ARGTYPES = {
     "ns_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                  _D, _D, _D, _D, _I, _I, _P, _P, _P, _P, _P, _P, _P],
 }
-
-_LIBS: Dict[str, ctypes.CDLL] = {}
-BUILD_LOG: Dict[str, str] = {}      # name -> nvcc/ptxas report of the build
-
-
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
-                 os.path.join(cuda_home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set NVCC or CUDA_HOME")
-
-
-def _library_path(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
-
-
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile and load the kernels not loaded yet: one ``nvcc`` per
-    source, all started together.  A library already on disk for the same
-    source and flags is loaded without compiling.  Returns the seconds
-    each compile took (0.0 when nothing was compiled); raises with the
-    compiler's report when a build fails."""
-    names = list(SOURCES if names is None else names)
-    todo = [n for n in names if n not in _LIBS]
-    spent = {n: 0.0 for n in names}
-    procs = {}
-    for n in todo:
-        out = _library_path(n)
-        if out.exists():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, out, time.perf_counter())
-    failed = []
-    for n, (proc, tmp, out, t0) in procs.items():
-        report, _ = proc.communicate()
-        spent[n] = time.perf_counter() - t0
-        BUILD_LOG[n] = report
-        if proc.returncode != 0:
-            failed.append(f"{n}: nvcc exit {proc.returncode}\n{report}")
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    for n in todo:
-        lib = ctypes.CDLL(str(_library_path(n)))
-        for dt in ("f64", "f32"):
-            fn = getattr(lib, f"{n}_{dt}")
-            fn.argtypes = _ARGTYPES[n]
-            fn.restype = ctypes.c_int
-        lib.scalana_error_string.argtypes = [ctypes.c_int]
-        lib.scalana_error_string.restype = ctypes.c_char_p
-        _LIBS[n] = lib
-    return spent
+# no FMA contraction: every product and sum rounds on its own, as in the
+# numpy reference
+LIBRARIES = {
+    n: _build.Library(n, CSRC / f"{n}.cu",
+                      {f"{n}_{dt}": _ARGTYPES[n] for dt in ("f64", "f32")},
+                      extra_flags=("-fmad=false",))
+    for n in ("ab_fused", "ns_fused")}
 
 
 def _entry(name: str, dtype: torch.dtype):
-    if name not in _LIBS:
-        build([name])
     suffix = {torch.float64: "f64", torch.float32: "f32"}[dtype]
-    return _LIBS[name], getattr(_LIBS[name], f"{name}_{suffix}")
-
-
-def _check(name: str, t: torch.Tensor, dtype=None, ndim=None, shape=None,
-           device=None) -> None:
-    if not isinstance(t, torch.Tensor) or not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if dtype is not None and t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if ndim is not None and t.dim() != ndim:
-        raise ValueError(f"{name}: {t.dim()}-d, expected {ndim}-d")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    lib = LIBRARIES[name]
+    return lib, lib.entry(f"{name}_{suffix}")
 
 
 def _float_dtype(t: torch.Tensor) -> torch.dtype:
@@ -150,16 +65,6 @@ def _float_dtype(t: torch.Tensor) -> torch.dtype:
         raise TypeError(f"detection kernels take float64 or float32, "
                         f"not {t.dtype}")
     return t.dtype
-
-
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def _raise_on(lib, rc: int, name: str) -> None:
-    if rc != 0:
-        msg = lib.scalana_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
 
 
 def _key_dtype(dt: torch.dtype) -> torch.dtype:
@@ -217,7 +122,7 @@ def ab_fused(t: torch.Tensor, valid: Optional[torch.Tensor],
                 col_count.data_ptr(), heads.data_ptr(), order.data_ptr(),
                 scores.data_ptr(), count.data_ptr(), typical.data_ptr(),
                 stream)
-    _raise_on(lib, rc, "ab_fused")
+    lib.raise_on(rc, "ab_fused")
     ab_fused.launches += 1
     return order, scores, count, typical
 
@@ -279,7 +184,7 @@ def ns_fused(t: torch.Tensor, var: torch.Tensor, hist: torch.Tensor,
                 float(total_max) if use_total else 0.0, int(use_total),
                 int(tail), part_cnt.data_ptr(), part_f.data_ptr(),
                 M.data_ptr(), _ptr(slope), _ptr(share), _ptr(flag), stream)
-    _raise_on(lib, rc, "ns_fused")
+    lib.raise_on(rc, "ns_fused")
     ns_fused.launches += 1
     if not tail:
         return M

@@ -1,0 +1,70 @@
+"""Uniform model API: ``build_model(cfg)`` -> ``ModelBundle``.
+
+The bundle exposes the JAX package's entry points (init, train_loss,
+prefill, decode_step, init_cache) on torch tensors.  Only the dense
+family is ported; the others raise, naming the ROADMAP item that ports
+them.  Everything runs on ``cuda`` unless ``device="cpu"`` is asked for.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer
+from repro_torch.models.params import Specs, init_params, param_count
+
+# families of the JAX package not ported yet -> the ROADMAP item
+PENDING_FAMILIES = {
+    "moe": "ROADMAP Slice C item 11",
+    "ssm": "ROADMAP Slice C item 12",
+    "hybrid": "ROADMAP Slice C item 12",
+    "encdec": "ROADMAP Slice C item 13",
+    "vlm": "ROADMAP Slice C item 13",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    cfg: ArchConfig
+    specs: Specs
+    device: torch.device
+    init: Callable[[torch.Generator], Any]
+    train_loss: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+    prefill: Callable[..., Tuple[torch.Tensor, Any]]
+    decode_step: Callable[..., Tuple[torch.Tensor, Any]]
+    init_cache: Callable[[int, int], Any]
+
+    def param_count(self) -> int:
+        return param_count(self.specs)
+
+    def generator(self, seed: int) -> torch.Generator:
+        """A generator on the bundle's device seeded with ``seed``, for
+        :attr:`init`."""
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+
+def build_model(cfg: ArchConfig,
+                device: Optional[torch.device | str] = None) -> ModelBundle:
+    """The bundle of ``cfg``'s family on ``device`` (``cuda`` when None).
+    ``init(generator)`` makes fresh weights on the generator's device."""
+    if cfg.family in PENDING_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet "
+            f"({PENDING_FAMILIES[cfg.family]})")
+    if cfg.family != "dense":
+        raise ValueError(f"unknown family {cfg.family!r}")
+    dev = torch.device("cuda" if device is None else device)
+    pdt, cdt = cfg.pdtype(), cfg.cdtype()
+    specs = transformer.lm_specs(cfg)
+    return ModelBundle(
+        cfg=cfg, specs=specs, device=dev,
+        init=lambda generator: init_params(specs, generator, pdt),
+        train_loss=functools.partial(transformer.train_loss, cfg),
+        prefill=functools.partial(transformer.prefill, cfg),
+        decode_step=functools.partial(transformer.decode_step, cfg),
+        init_cache=lambda b, s: transformer.init_cache(cfg, b, s, cdt, dev),
+    )

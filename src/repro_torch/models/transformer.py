@@ -1,0 +1,184 @@
+"""Decoder-only transformer LM, dense family.
+
+Per-layer parameters keep the JAX package's stacked layout (every block
+leaf carries a leading ``n_layers`` axis); the layer loop is a Python
+loop over per-layer views of them.  ``cfg.remat`` has no effect on a
+forward and is wired with the train step (ROADMAP next 1).  The MoE and
+VLM branches of the JAX module come with their families (ROADMAP Slice
+C) and raise here.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    chunked_cross_entropy,
+    embed_specs,
+    embed_tokens,
+    logits_for,
+    mlp_apply,
+    mlp_specs,
+    rms_norm,
+)
+from repro_torch.models.params import P, Specs
+
+
+def _dense_only(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family!r} block is not ported yet (ROADMAP Slice C, "
+            "item 11 for moe, item 13 for vlm)")
+
+
+def stack_specs(specs: Specs, n: int) -> Specs:
+    """Add a leading stacked-layer dim to every leaf."""
+    out: Specs = {}
+    for k, v in specs.items():
+        if isinstance(v, P):
+            out[k] = P((n,) + v.shape, ("layers",) + v.axes, v.init, v.scale)
+        else:
+            out[k] = stack_specs(v, n)
+    return out
+
+
+def block_specs(cfg: ArchConfig) -> Specs:
+    _dense_only(cfg)
+    return {
+        "attn_norm": P((cfg.d_model,), ("embed",), init="zeros"),
+        "attn": attn.attention_specs(cfg),
+        "mlp_norm": P((cfg.d_model,), ("embed",), init="zeros"),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+def lm_specs(cfg: ArchConfig) -> Specs:
+    return {
+        "embed": embed_specs(cfg),
+        "layers": stack_specs(block_specs(cfg), cfg.n_layers),
+        "final_norm": P((cfg.d_model,), ("embed",), init="zeros"),
+    }
+
+
+def layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i``'s parameters: views of the stacked leaves."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+def _block_train(cfg: ArchConfig, x: torch.Tensor,
+                 p: Dict[str, Any]) -> torch.Tensor:
+    h = x + attn.attention_train(cfg, p["attn"],
+                                 rms_norm(x, p["attn_norm"], cfg.norm_eps))
+    hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
+    return h + mlp_apply(cfg, p["mlp"], hn)
+
+
+def backbone_train(cfg: ArchConfig, params: Dict[str, Any],
+                   x: torch.Tensor) -> torch.Tensor:
+    """Run all blocks over embedded input x: (B, S, D); final-normed."""
+    _dense_only(cfg)
+    for i in range(cfg.n_layers):
+        x = _block_train(cfg, x, layer_params(params["layers"], i))
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def train_loss(cfg: ArchConfig, params: Dict[str, Any],
+               batch: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy over ``batch["tokens"]`` (B, S + 1);
+    labels below 0 are masked out.  Returns (loss, metrics)."""
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    x = embed_tokens(params["embed"], inputs)
+    h = backbone_train(cfg, params, x)
+    mask = (labels >= 0).float()
+    loss_sum, count = chunked_cross_entropy(
+        params["embed"], h, torch.clamp(labels, min=0), mask, cfg.loss_chunk)
+    loss = loss_sum / torch.clamp(count, min=1.0)
+    return loss, {"ce_loss": loss, "tokens": count, "loss": loss}
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+class LMCache(NamedTuple):
+    kv: attn.KVCache
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype: torch.dtype, device) -> LMCache:
+    return LMCache(attn.init_kv_cache(cfg, batch, max_len, cfg.n_layers,
+                                      dtype, device))
+
+
+def _block_prefill(cfg: ArchConfig, x: torch.Tensor, p: Dict[str, Any],
+                   max_len: int):
+    """Block forward that also emits this layer's (padded) K/V for the
+    cache.  Attention is the einsum path, as in the JAX package."""
+    B, S, _ = x.shape
+    xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = attn.qkv(cfg, p["attn"], xn, positions)
+    o = attn.attend(q, k, v, causal=True,
+                    softmax_scale=cfg.resolved_head_dim() ** -0.5)
+    h = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
+    hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
+    out = h + mlp_apply(cfg, p["mlp"], hn)
+    pad = (0, 0, 0, 0, 0, max_len - S)          # zeros after position S
+    return out, (F.pad(k, pad), F.pad(v, pad))
+
+
+def prefill(cfg: ArchConfig, params: Dict[str, Any],
+            batch: Dict[str, torch.Tensor], max_len: int
+            ) -> Tuple[torch.Tensor, LMCache]:
+    """Process the full prompt; returns (last-position logits, primed
+    cache of ``max_len`` positions)."""
+    _dense_only(cfg)
+    tokens = batch["tokens"]
+    x = embed_tokens(params["embed"], tokens)
+    B, S, _ = x.shape
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, (k, v) = _block_prefill(cfg, x, layer_params(params["layers"], i),
+                                   max_len)
+        ks.append(k)
+        vs.append(v)
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = logits_for(params["embed"], h[:, -1:, :])
+    lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return logits, LMCache(attn.KVCache(torch.stack(ks), torch.stack(vs),
+                                        lengths))
+
+
+def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: LMCache,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, LMCache]:
+    """One decode step. tokens: (B, 1) int; returns (logits (B, 1, V),
+    the cache one token longer)."""
+    _dense_only(cfg)
+    kv = cache.kv
+    x = embed_tokens(params["embed"], tokens)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        p = layer_params(params["layers"], i)
+        xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        o, k_c, v_c = attn.attention_decode(cfg, p["attn"], xn, kv.k[i],
+                                            kv.v[i], kv.length)
+        h = x + o
+        hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
+        x = h + mlp_apply(cfg, p["mlp"], hn)
+        ks.append(k_c)
+        vs.append(v_c)
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = logits_for(params["embed"], h)
+    return logits, LMCache(attn.KVCache(torch.stack(ks), torch.stack(vs),
+                                        kv.length + 1))

@@ -81,3 +81,59 @@ def test_ns_fused_matches_plain(card, dtype):
     col = ops.merge_scale_column(list(t[0].chunk(4)), list(var[0].chunk(4)))
     w = ref.merge_blocks([t[0]], [var[0]])
     assert ((col - w).abs().max() <= tol * w.abs().max()).item()
+
+
+# -- flash attention: the CUDA kernel against its plain version ---------
+
+# (B, nq, nkv, Sq, Sk, h, causal, dtype): the reference's sweep
+# (tests/test_kernels.py), a ragged length the kernel masks itself, and
+# the full-width tinyllama layer
+FLASH_CASES = [
+    (1, 2, 2, 64, 64, 32, True, torch.float32),
+    (2, 4, 2, 128, 128, 64, True, torch.float32),
+    (1, 8, 1, 128, 128, 64, True, torch.float32),
+    (2, 4, 4, 64, 128, 32, False, torch.float32),
+    (1, 2, 2, 128, 128, 128, True, torch.float32),
+    (1, 4, 2, 64, 64, 64, True, torch.bfloat16),
+    (1, 4, 2, 100, 100, 64, True, torch.float32),
+    (4, 32, 4, 2048, 2048, 64, True, torch.float32),
+    (4, 32, 4, 2048, 2048, 64, True, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(card, case):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+    B, nq, nkv, Sq, Sk, h, causal, dt = case
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(card, dt)
+               for s in ((B, nq, Sq, h), (B, nkv, Sk, h), (B, nkv, Sk, h)))
+    before = fk.flash_attention.launches
+    got = fk.flash_attention(q, k, v, causal=causal, softmax_scale=h ** -0.5)
+    want = fr.attention(q, k, v, causal=causal, softmax_scale=h ** -0.5)
+    torch.cuda.synchronize()
+    assert fk.flash_attention.launches == before + 1
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_op_in_models_layout(card):
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.kernels.flash_attention import ref as fr
+    rng = np.random.default_rng(4)
+    B, S, nq, nkv, h = 2, 256, 8, 2, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(card)
+               for s in ((B, S, nq, h), (B, S, nkv, h), (B, S, nkv, h)))
+    got = fo.flash_attention(q, k, v, causal=True)
+    want = fr.attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True,
+                        softmax_scale=h ** -0.5).transpose(1, 2)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="head dim"):
+        fo.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError):
+        fo.flash_attention(q, k, v).sum().backward()

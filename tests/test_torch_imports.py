@@ -46,7 +46,15 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core",
            "repro_torch.kernels", "repro_torch.kernels.detect_fused",
            "repro_torch.kernels.detect_fused.kernel",
            "repro_torch.kernels.detect_fused.ops",
-           "repro_torch.kernels.detect_fused.ref", "repro_torch.scenarios"]
+           "repro_torch.kernels.detect_fused.ref", "repro_torch.scenarios",
+           "repro_torch.kernels._build", "repro_torch.kernels.flash_attention",
+           "repro_torch.kernels.flash_attention.kernel",
+           "repro_torch.kernels.flash_attention.ops",
+           "repro_torch.kernels.flash_attention.ref", "repro_torch.configs",
+           "repro_torch.configs.base", "repro_torch.configs.tinyllama_1_1b",
+           "repro_torch.models", "repro_torch.models.params",
+           "repro_torch.models.layers", "repro_torch.models.attention",
+           "repro_torch.models.transformer", "repro_torch.models.api"]
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():
@@ -79,6 +87,26 @@ def test_entry_points_run_a_diagnosis_with_jax_and_repro_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_model_entry_points_run_with_jax_and_repro_blocked():
+    out = _run("""
+        import torch
+        from repro_torch import build_model
+        from repro_torch.configs import get_smoke
+        cfg = get_smoke("tinyllama-1.1b").replace(use_kernels=True)
+        m = build_model(cfg, device="cpu")
+        p = m.init(m.generator(0))
+        toks = torch.randint(0, cfg.vocab_size, (2, 17),
+                             generator=torch.Generator().manual_seed(0))
+        loss, _ = m.train_loss(p, {"tokens": toks})
+        logits, cache = m.prefill(p, {"tokens": toks[:, :8]}, 16)
+        logits, cache = m.decode_step(p, cache, logits[:, -1].argmax(-1)[:, None])
+        assert torch.isfinite(loss) and logits.shape == (2, 1, cfg.vocab_size)
+        print("ok")
+    """)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_importing_the_port_builds_nothing():
     # every module imported in a fresh interpreter whose process spawning
     # and library loading are recorded: no nvcc starts, nothing is loaded
@@ -98,10 +126,13 @@ def test_importing_the_port_builds_nothing():
         ctypes.CDLL = cdll
         for name in {MODULES!r}:
             importlib.import_module(name)
+        from repro_torch.kernels import _build
         from repro_torch.kernels.detect_fused import kernel
+        from repro_torch.kernels.flash_attention import kernel as flash
         assert spawned == [], spawned
-        assert kernel._LIBS == {{}} and kernel.BUILD_LOG == {{}}
+        assert _build._LIBS == {{}} and _build.BUILD_LOG == {{}}
         assert kernel.ab_fused.launches == 0 == kernel.ns_fused.launches
+        assert flash.flash_attention.launches == 0
         print("ok")
     """)
     assert out.returncode == 0, out.stderr
