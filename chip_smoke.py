@@ -30,11 +30,23 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    chunked path at (2, 4097), 22 kernel launches per loss; and four
    128-token prompts served: prefill into a 256-token cache, 32 greedy
    tokens each, twice (the same tokens), and the prompts decoded token by
-   token from an empty cache agreeing with prefill.
+   token from an empty cache agreeing with prefill;
+6. ssm — the ``ssd_scan`` kernel against its plain version at the
+   reference's sweep, at a sequence shorter than its chunk and at the two
+   full-width shapes, with its time at mamba2's, the plain version's and
+   its bound; the flash kernel at zamba2's layer (h = 80) in float32 and
+   bfloat16 with its time; then mamba2-130m at full width (24 layers,
+   random weights from a seed): ``train_loss`` through the kernel against
+   the plain path at tokens (8, 2049), a 32768-token prefill both ways,
+   four 128-token prompts served (32 greedy tokens, twice) and decoded
+   token by token; then zamba2-2.7b at full width (54 Mamba2 layers, the
+   shared attention block at 9 sites): ``train_loss`` both ways at
+   (2, 2049), two 128-token prompts served (16 greedy tokens, twice) and
+   decoded token by token.
 
 The detection kernels' launch counts are reset just before phase 3 and
-read just after phase 4; the flash kernel's just before the model's
-losses and just after its serving run.  It exits non-zero, printing no
+read just after phase 4; the kernels' counts of each model path just
+before its first loss and just after its serving run.  It exits non-zero, printing no
 result, when any check fails, when there is no CUDA card, or when the
 port is not next to it.  The last line is ``{"ok": true, "device":
 {...}}``.
@@ -58,7 +70,6 @@ FP_OPS_PER_S = 67e12            # float32 outside the tensor cores (same)
 TOL = {"float64": 1e-12, "float32": 1e-4}
 BANK_PROCS = 2048
 FLEET_SCALES = (8192, 16384, 32768, 65536)
-MODEL = "tinyllama-1.1b"
 # (B, nq, nkv, Sq, Sk, h, causal, dtype name): the reference's flash
 # sweep (tests/test_kernels.py) and the full-width tinyllama layer
 FLASH_SWEEP = [
@@ -71,8 +82,34 @@ FLASH_SWEEP = [
 ]
 FLASH_FULL = (4, 32, 4, 2048, 2048, 64, True)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:41
-TRAIN_TOKENS = ((4, 2049), (2, 4097))     # einsum path, then chunked path
-SERVE_B, PROMPT, MAX_LEN, NEW = 4, 128, 256, 32
+PROMPT, MAX_LEN = 128, 256
+# (arch, train token shapes, serve batch, new tokens, long prefill or
+# None); tinyllama's two shapes take the einsum path, then the chunked
+MODELS = [("tinyllama-1.1b", ((4, 2049), (2, 4097)), 4, 32, None),
+          ("mamba2-130m", ((8, 2049),), 4, 32, 32768),
+          ("zamba2-2.7b", ((2, 2049),), 2, 16, None)]
+# (B, S, H, P, N, chunk): the reference's SSD sweep (tests/test_kernels.py),
+# a sequence shorter than its chunk, then mamba2-130m's and zamba2-2.7b's
+# loss shapes
+SSD_SWEEP = [
+    (1, 64, 2, 32, 16, 32),
+    (2, 128, 4, 64, 32, 64),
+    (1, 96, 2, 32, 16, 32),
+    (2, 100, 3, 16, 8, 64),
+    (1, 256, 1, 64, 64, 64),
+    (1, 37, 2, 16, 16, 64),
+]
+SSD_FULL = [(8, 2048, 24, 64, 128, 64), (2, 2048, 80, 64, 64, 64)]
+SSD_TOL = 2e-4                   # tests/test_kernels.py:117-120
+# full width, relative to max |y| (max |h|): float32 sums of up to
+# Q + N = 192 products in another order, ~1e-6 of the largest value;
+# 2e-5 leaves a factor of ten
+SSD_FULL_TOL = 2e-5
+FLASH_ZAMBA = (2, 32, 32, 2048, 2048, 80, True)
+# prefill's final states through the kernel vs the plain path, relative
+# to their max |h|: the per-layer differences above, carried through 24
+# layers of the residual stream
+STATE_TOL = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -483,27 +520,47 @@ def time_flash():
         bound=bound_ms(n_bytes, 2 * B * nq * S * S * h))
 
 
-def phase_model():
-    """Full-width tinyllama-1.1b on the card: the kernel path's loss
-    against the einsum and chunked paths, then four requests served."""
+def phase_model(arch, train, serve_b, new, long_prefill):
+    """One model at full width on the card, random weights from seed 0:
+    at each train shape the kernel path's loss against the plain path's
+    (first calls, then three more of each in turns), one profiled loss,
+    a long prefill both ways (where given), and ``serve_b`` prompts served
+    twice and decoded token by token.  Checks each loss's kernel launches
+    and returns the launches the whole run must have made."""
     import numpy as np
     import torch
     from repro_torch.configs import get
-    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.models import build_model
     from repro_torch.models.attention import CHUNKED_ATTN_THRESHOLD
+    from repro_torch.models.hybrid import n_attn_sites
 
-    cfg = get(MODEL)
+    def counts():
+        return {"flash_attention": flash.flash_attention.launches,
+                "ssd_scan": ssd.ssd_scan.launches}
+
+    cfg = get(arch)
+    ssm = cfg.family in ("ssm", "hybrid")
+    per_loss = {"flash_attention": cfg.n_layers if cfg.family == "dense"
+                else n_attn_sites(cfg) if cfg.family == "hybrid" else 0,
+                "ssd_scan": cfg.n_layers if ssm else 0}
+    per_prefill = {"flash_attention": 0, "ssd_scan": per_loss["ssd_scan"]}
+    losses = prefills = 0
     plain = build_model(cfg)
     kern = build_model(cfg.replace(use_kernels=True))
     t0 = time.perf_counter()
     params = plain.init(plain.generator(0))
     torch.cuda.synchronize()
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    print(f"  init: {plain.param_count()} params, {n_bytes / 1e9:.2f} GB "
-          f"on the card, {time.perf_counter() - t0:.1f} s")
+    print(f"  {arch} init: {plain.param_count()} params, "
+          f"{n_bytes / 1e9:.2f} GB on the card, "
+          f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
-    kernel_losses = 0
+
+    def tokens(shape):
+        return torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, shape, dtype=np.int64)).to("cuda")
 
     def loss(model, batch):
         """(loss, seconds on the host clock to a synchronised result)"""
@@ -511,57 +568,79 @@ def phase_model():
         value = float(model.train_loss(params, batch)[0])
         return value, time.perf_counter() - t0
 
-    for B, T in TRAIN_TOKENS:
-        batch = {"tokens": torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (B, T), dtype=np.int64)).to("cuda")}
-        before = kernel.flash_attention.launches
+    for B, T in train:
+        batch = {"tokens": tokens((B, T))}
+        before = counts()
         lk, first_k = loss(kern, batch)
-        n = kernel.flash_attention.launches - before
+        made = {k: n - before[k] for k, n in counts().items()}
         l0, first_0 = loss(plain, batch)
-        path = "einsum" if T - 1 <= CHUNKED_ATTN_THRESHOLD else "chunked"
+        path = "plain" if ssm else (
+            "einsum" if T - 1 <= CHUNKED_ATTN_THRESHOLD else "chunked")
         check(np.isfinite(lk) and np.isfinite(l0),
-              f"loss at {(B, T)}: {lk}, {l0}")
-        check(abs(lk - l0) < 1e-3, f"loss at {(B, T)}: kernel {lk!r} vs "
-              f"{path} {l0!r}")
-        check(n == cfg.n_layers, f"loss at {(B, T)}: {n} flash launches, "
-              f"expected {cfg.n_layers}")
+              f"{arch} loss at {(B, T)}: {lk}, {l0}")
+        check(abs(lk - l0) < 1e-3, f"{arch} loss at {(B, T)}: kernel {lk!r} "
+              f"vs {path} {l0!r}")
+        check(made == per_loss, f"{arch} loss at {(B, T)}: launches {made}, "
+              f"expected {per_loss}")
         # steady times: median of 3 more of each, in turns
         secs = {"kernel": [], path: []}
         for _ in range(3):
             for name, model in (("kernel", kern), (path, plain)):
                 value, t = loss(model, batch)
-                check(abs(value - l0) < 1e-3, f"loss at {(B, T)}: {name} "
-                      f"gave {value!r} on a later call")
+                check(abs(value - l0) < 1e-3, f"{arch} loss at {(B, T)}: "
+                      f"{name} gave {value!r} on a later call")
                 secs[name].append(t)
-        kernel_losses += 4
-        print(f"  train_loss tokens {(B, T)}: kernel {lk!r}, {path} {l0!r}, "
-              f"|diff| {abs(lk - l0):.3g}, {n} flash launches; first call "
-              f"kernel {first_k:.3f} s, {path} {first_0:.3f} s; steady "
+        losses += 4
+        print(f"  {arch} train_loss tokens {(B, T)}: kernel {lk!r}, {path} "
+              f"{l0!r}, |diff| {abs(lk - l0):.3g}, launches {made}; first "
+              f"call kernel {first_k:.3f} s, {path} {first_0:.3f} s; steady "
               + ", ".join(f"{k} {statistics.median(v):.3f} s"
                           for k, v in secs.items())
               + " (median of 3, host clock)")
     # one kernel-path loss at the first shape under the profiler
-    B, T = TRAIN_TOKENS[0]
-    batch = {"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (B, T), dtype=np.int64)).to("cuda")}
+    batch = {"tokens": tokens(train[0])}
     got = profile_cycle(lambda: kern.train_loss(params, batch)[0],
-                        "train_loss")
-    kernel_losses += 1
+                        f"{arch} train_loss")
+    losses += 1
     check(abs(float(got) - float(plain.train_loss(params, batch)[0])) < 1e-3,
-          "profiled loss differs from the einsum path")
+          f"{arch}: the profiled loss differs from the plain path's")
 
-    prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (SERVE_B, PROMPT), dtype=np.int64)).to("cuda")
+    if long_prefill:
+        toks = tokens((1, long_prefill))
+        t0 = time.perf_counter()
+        klog, kcache = kern.prefill(params, {"tokens": toks}, long_prefill)
+        torch.cuda.synchronize()
+        tk = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plog, pcache = plain.prefill(params, {"tokens": toks}, long_prefill)
+        torch.cuda.synchronize()
+        tp = time.perf_counter() - t0
+        prefills += 1
+        d = (klog - plog).abs().max().item()
+        e = rel_err(kcache.ssm.h, pcache.ssm.h)
+        ec = rel_err(kcache.ssm.conv, pcache.ssm.conv)
+        check(bool(torch.isfinite(klog).all()) and d <= 1e-3,
+              f"{arch} prefill {long_prefill}: logits |diff| {d}")
+        check(e <= STATE_TOL and ec <= STATE_TOL,
+              f"{arch} prefill {long_prefill}: states rel err {e}, conv {ec}")
+        print(f"  {arch} prefill 1 x {long_prefill}: kernel {tk:.3f} s, "
+              f"plain {tp:.3f} s (host clock, first call); logits max |diff| "
+              f"{d:.3g}, final states rel err {e:.3g}, conv {ec:.3g} "
+              f"(tol {STATE_TOL})")
+        del kcache, pcache
+
+    prompts = tokens((serve_b, PROMPT))
 
     def serve():
-        logits, cache = plain.prefill(params, {"tokens": prompts}, MAX_LEN)
+        logits, cache = kern.prefill(params, {"tokens": prompts}, MAX_LEN)
         first = logits
         out = []
-        for _ in range(NEW):
+        for _ in range(new):
             tok = logits[:, -1].argmax(-1, keepdim=True)
             out.append(tok)
-            logits, cache = plain.decode_step(params, cache, tok)
-        check(int(cache.kv.length[0]) == PROMPT + NEW, "cache length")
+            logits, cache = kern.decode_step(params, cache, tok)
+        length = getattr(cache, "kv", cache).length
+        check(int(length[0]) == PROMPT + new, f"{arch}: cache length")
         return first, torch.cat(out, 1)
 
     t0 = time.perf_counter()
@@ -569,17 +648,156 @@ def phase_model():
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     _, toks_b = serve()
-    check(torch.equal(toks_a, toks_b), "greedy decode is not deterministic")
-    check(bool(torch.isfinite(first).all()), "prefill logits not finite")
-    cache = plain.init_cache(SERVE_B, MAX_LEN)
+    prefills += 2
+    check(torch.equal(toks_a, toks_b), f"{arch}: greedy decode is not "
+          "deterministic")
+    check(bool(torch.isfinite(first).all()), f"{arch}: prefill logits not "
+          "finite")
+    cache = kern.init_cache(serve_b, MAX_LEN)
     for i in range(PROMPT):
-        step, cache = plain.decode_step(params, cache, prompts[:, i:i + 1])
+        step, cache = kern.decode_step(params, cache, prompts[:, i:i + 1])
     d = (first[:, -1] - step[:, -1]).abs().max().item()
-    check(d <= 2e-2, f"prefill vs token-by-token decode: max |diff| {d}")
-    print(f"  served {SERVE_B} prompts x {PROMPT} tokens + {NEW} greedy "
-          f"tokens in {secs:.2f} s (host clock); second run identical; "
-          f"prefill vs decode max |diff| {d:.3g}")
-    return kernel_losses
+    check(d <= 2e-2, f"{arch}: prefill vs token-by-token decode: max |diff| "
+          f"{d}")
+    print(f"  {arch} served {serve_b} prompts x {PROMPT} tokens + {new} "
+          f"greedy tokens in {secs:.2f} s (host clock); second run "
+          f"identical; prefill vs decode max |diff| {d:.3g}")
+    return {k: per_loss[k] * losses + per_prefill[k] * prefills
+            for k in per_loss}
+
+
+def drive_model(arch, *spec):
+    """``phase_model`` with the model kernels' counts set to 0 just before
+    it and read just after; fails unless they are what the run must have
+    made and some kernel ran."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    flash.flash_attention.launches = ssd.ssd_scan.launches = 0
+    want = phase_model(arch, *spec)
+    got = {"flash_attention": flash.flash_attention.launches,
+           "ssd_scan": ssd.ssd_scan.launches}
+    check(got == want and any(got.values()),
+          f"{arch}: launches {got}, expected {want}")
+    print(f"  {arch} path launches: {got}")
+    return got
+
+
+def ssd_inputs(case, seed):
+    """The reference's ``_ssd_inputs`` (tests/test_kernels.py:98-106) on
+    the card."""
+    import numpy as np
+    import torch
+    B, S, H, Pd, N, _ = case
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, Pd))
+    dt = np.abs(rng.standard_normal((B, S, H))) * 0.1
+    A = -(np.abs(rng.standard_normal((H,))) + 0.1)
+    Bm = rng.standard_normal((B, S, N))
+    Cm = rng.standard_normal((B, S, N))
+    return [torch.from_numpy(a.astype(np.float32)).to("cuda")
+            for a in (x, dt, A, Bm, Cm)]
+
+
+def phase_ssd():
+    """The ssd_scan kernel (through the op, which pads ragged sequences)
+    against its plain version on the same card tensors; returns the max
+    absolute error of y at mamba2's full shape."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    err = 0.0
+    for case in SSD_SWEEP + SSD_FULL:
+        args = ssd_inputs(case, seed=sum(case))
+        chunk = case[5]
+        y, h = ops.ssd_scan(*args, chunk=chunk, return_final=True)
+        yr, hr = ref.ssd_ref(*args, chunk=chunk, return_final=True)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all()),
+              f"ssd {case}: not finite")
+        dy, dh = (y - yr).abs().max().item(), (h - hr).abs().max().item()
+        if case in SSD_FULL:
+            ey, eh = rel_err(y, yr), rel_err(h, hr)
+            check(ey <= SSD_FULL_TOL and eh <= SSD_FULL_TOL,
+                  f"ssd {case}: rel err y {ey:.3g}, h {eh:.3g} "
+                  f"(tol {SSD_FULL_TOL} of max |y|, max |h|)")
+            if case == SSD_FULL[0]:
+                err = dy
+            bound = ssd_bound(case)
+            print(f"  ssd_scan {case}: max abs err y {dy:.3g} h {dh:.3g}; "
+                  f"rel to max |y| {ey:.3g}, max |h| {eh:.3g} within "
+                  f"{SSD_FULL_TOL}; bound {bound[0]:.4f} ms ({bound[1]})")
+        else:
+            for g, w in ((y, yr), (h, hr)):
+                ok = bool(((g - w).abs() <= SSD_TOL + SSD_TOL * w.abs()).all())
+                check(ok, f"ssd {case}: max abs err y {dy:.3g} h {dh:.3g} "
+                      f"(tol {SSD_TOL})")
+            print(f"  ssd_scan {case}: max abs err y {dy:.3g} h {dh:.3g} "
+                  f"within {SSD_TOL}")
+    return err
+
+
+def ssd_bound(case):
+    """The least time of the SSD scan at ``case``: x, dt, A, B, C read
+    once and y and the final state written once, over the HBM rate; the
+    chunked SSD's products over the f32 rate.  Per (batch row, head,
+    chunk) those are C B^T and M x on the causal triangle only, Q(Q+1)/2
+    (N + P) multiply-adds, and C h_prev and B^T (w x), 2 Q N P."""
+    B, S, H, Pd, N, Q = case
+    n_bytes = 4 * (2 * B * S * H * Pd + B * S * H + H + 2 * B * S * N
+                   + B * H * N * Pd)
+    macs = (Q * (Q + 1) // 2 * (N + Pd) + 2 * Q * N * Pd) * B * H * (S // Q)
+    return bound_ms(n_bytes, 2 * macs)
+
+
+def time_ssd():
+    """The kernel at mamba2-130m's loss shape, its plain version on the
+    same tensors, and its bound.  No single library call computes it."""
+    from repro_torch.kernels.ssd_scan import kernel, ref
+
+    case = SSD_FULL[0]
+    Q = case[5]
+    args = ssd_inputs(case, seed=sum(case))
+    return dict(
+        ms=cuda_ms(lambda: kernel.ssd_scan(*args, chunk=Q)),
+        plain_ms=cuda_ms(lambda: ref.ssd_ref(*args, chunk=Q,
+                                             return_final=True), reps=10),
+        library_ms=None,
+        bound=ssd_bound(case))
+
+
+def phase_flash80():
+    """The flash kernel at zamba2-2.7b's attention layer (h = 80) against
+    its plain version in f32 and bf16; its time, the plain version's,
+    SDPA's and the bound, on a line of their own."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    B, nq, nkv, S, _, h, _ = FLASH_ZAMBA
+    scale = h ** -0.5
+    for dt in ("float32", "bfloat16"):
+        q, k, v = flash_inputs(FLASH_ZAMBA + (dt,), seed=7)
+        got = kernel.flash_attention(q, k, v, causal=True, softmax_scale=scale)
+        want = ref.attention(q, k, v, causal=True, softmax_scale=scale)
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        tol = FLASH_TOL[dt]
+        check(bool((d <= tol + tol * want.float().abs()).all())
+              and bool(torch.isfinite(got).all()),
+              f"flash {FLASH_ZAMBA} {dt}: max abs err {d.max().item():.3g}")
+        print(f"  flash {FLASH_ZAMBA} {dt}: max abs err "
+              f"{d.max().item():.3g} within {tol}")
+    q, k, v = flash_inputs(FLASH_ZAMBA + ("float32",), seed=7)
+    ms = cuda_ms(lambda: kernel.flash_attention(q, k, v, causal=True,
+                                                softmax_scale=scale))
+    plain = cuda_ms(lambda: ref.attention(q, k, v, causal=True,
+                                          softmax_scale=scale), reps=10)
+    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale))
+    bound = bound_ms(4 * 4 * q.numel(), 2 * B * nq * S * S * h)
+    print(f"  flash_attention {FLASH_ZAMBA} f32: {ms:.4f} ms  plain "
+          f"{plain:.4f} ms  bound {bound[0]:.4f} ms ({bound[1]})  sdpa "
+          f"{sdpa:.4f} ms")
 
 
 def _leaves(tree):
@@ -644,6 +862,7 @@ def main() -> int:
         from repro_torch.kernels import _build
         from repro_torch.kernels.detect_fused import kernel
         from repro_torch.kernels.flash_attention import kernel as flash
+        from repro_torch.kernels.ssd_scan import kernel as ssd
     except ImportError as e:
         print(f"FAIL: the port is not next to this script ({e})",
               file=sys.stderr)
@@ -653,7 +872,8 @@ def main() -> int:
     card = smi()
     try:
         t0 = time.perf_counter()
-        spent = _build.build([*kernel.LIBRARIES.values(), flash.LIBRARY])
+        spent = _build.build([*kernel.LIBRARIES.values(), flash.LIBRARY,
+                              ssd.LIBRARY])
         wall = time.perf_counter() - t0
         print(f"[device] {card}; kernels built in {wall:.1f} s "
               + ", ".join(f"{n} {s:.1f} s" for n, s in spent.items()))
@@ -687,30 +907,40 @@ def main() -> int:
             check(c > 0, f"{n} was never launched on the main path")
         print(f"[kernels] main-path launches (bank + fleet): {launches}")
         t_model = time.perf_counter()
-        print(f"[model] {MODEL} at full width on the card, {card}")
+        print(f"[model] {MODELS[0][0]} at full width on the card, {card}")
         err["flash_attention"] = phase_flash()
         timing["flash_attention"] = tm = time_flash()
         print(f"  flash_attention {FLASH_FULL} f32: {tm['ms']:.4f} ms  plain "
               f"{tm['plain_ms']:.4f} ms  bound {tm['bound'][0]:.4f} ms "
               f"({tm['bound'][1]})  sdpa {tm['library_ms']:.4f} ms  [{card}]")
-        flash.flash_attention.launches = 0
-        kernel_losses = phase_model()
-        launches["flash_attention"] = flash.flash_attention.launches
-        check(launches["flash_attention"] == 22 * kernel_losses,
-              f"flash launches on the model path: "
-              f"{launches['flash_attention']}")
-        print(f"[model] flash_attention launches on the model path: "
-              f"{launches['flash_attention']}; phase wall time "
-              f"{time.perf_counter() - t_model:.1f} s")
+        launches["flash_attention"] = \
+            drive_model(*MODELS[0])["flash_attention"]
+        print(f"[model] phase wall time {time.perf_counter() - t_model:.1f} s")
+        torch.cuda.empty_cache()
+        t_ssm = time.perf_counter()
+        print(f"[ssm] ssd_scan and the h = 80 flash kernel; "
+              f"{', '.join(m[0] for m in MODELS[1:])} at full width, {card}")
+        err["ssd_scan"] = phase_ssd()
+        timing["ssd_scan"] = tm = time_ssd()
+        print(f"  ssd_scan {SSD_FULL[0]}: {tm['ms']:.4f} ms  plain "
+              f"{tm['plain_ms']:.4f} ms  bound {tm['bound'][0]:.4f} ms "
+              f"({tm['bound'][1]})  library null  [{card}]")
+        phase_flash80()
+        launches["ssd_scan"] = 0
+        for spec in MODELS[1:]:
+            launches["ssd_scan"] += drive_model(*spec)["ssd_scan"]
+            torch.cuda.empty_cache()
+        print(f"[ssm] phase wall time {time.perf_counter() - t_ssm:.1f} s")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     replaces = {"ab_fused": "src/repro/kernels/detect_fused/kernel.py:399",
                 "ns_fused": "src/repro/kernels/detect_fused/kernel.py:227",
                 "flash_attention":
-                    "src/repro/kernels/flash_attention/kernel.py:96"}
+                    "src/repro/kernels/flash_attention/kernel.py:96",
+                "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:81"}
     package = {"ab_fused": "detect_fused", "ns_fused": "detect_fused",
-               "flash_attention": "flash_attention"}
+               "flash_attention": "flash_attention", "ssd_scan": "ssd_scan"}
     rows = []
     for n, tm in timing.items():
         rows.append({

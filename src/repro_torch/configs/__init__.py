@@ -21,13 +21,14 @@ from repro_torch.configs.base import (
 
 _MODULES: Dict[str, str] = {
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "mamba2-130m": "mamba2_130m",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 ARCHS: List[str] = list(_MODULES)
 PENDING: List[str] = [
-    "nemotron-4-15b", "yi-6b", "gemma-7b", "mamba2-130m",
-    "seamless-m4t-medium", "internvl2-2b", "moonshot-v1-16b-a3b",
-    "dbrx-132b", "zamba2-2.7b",
+    "nemotron-4-15b", "yi-6b", "gemma-7b", "seamless-m4t-medium",
+    "internvl2-2b", "moonshot-v1-16b-a3b", "dbrx-132b",
 ]
 
 

@@ -58,7 +58,7 @@ class ArchConfig:
     # --- training-time knobs that affect lowering ---
     loss_chunk: int = 512            # chunked cross-entropy seq chunk
     remat: bool = True
-    use_kernels: bool = False        # hand-written CUDA flash-attention path
+    use_kernels: bool = False        # hand-written CUDA flash / SSD-scan paths
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads

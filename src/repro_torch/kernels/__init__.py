@@ -13,6 +13,7 @@ from repro_torch.kernels.detect_fused.ops import (
     fused_abnormal, fused_non_scalable, fused_non_scalable_live,
     merge_scale_column)
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
 __all__ = ["flash_attention", "fused_abnormal", "fused_non_scalable",
-           "fused_non_scalable_live", "merge_scale_column"]
+           "fused_non_scalable_live", "merge_scale_column", "ssd_scan"]

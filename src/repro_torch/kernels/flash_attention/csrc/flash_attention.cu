@@ -38,8 +38,11 @@
 //   * The output is written once, acc / l, with l == 0 dividing by 1
 //     (the row's acc is then 0), rounded once to the input type.
 //   * Shared memory per CTA: (BQ + BK) * (h + 4) + BK * h floats, 100 KB
-//     at h = 128, so two CTAs fit on an SM; 51 KB at h = 64.
-//   * Head dims 32, 64 and 128 are compiled; any other is refused.
+//     at h = 128, so two CTAs fit on an SM; 51 KB at h = 64, 62 KB at
+//     h = 80 (zamba2-2.7b's 2560 / 32).
+//   * Head dims 32, 64, 80 and 128 are compiled; any other is refused.
+//     At h = 80 a thread keeps 5 output columns, 16 apart (80 = 5 x 16
+//     does not split into float4 groups of a 16-thread row).
 
 #include <cstdint>
 #include <cstring>
@@ -70,6 +73,7 @@ template <> struct IO<float> {
   static __device__ __forceinline__ void store2(float* p, float a, float b) {
     *reinterpret_cast<float2*>(p) = make_float2(a, b);
   }
+  static __device__ __forceinline__ void store1(float* p, float a) { *p = a; }
 };
 template <> struct IO<__nv_bfloat16> {
   static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
@@ -92,16 +96,21 @@ template <> struct IO<__nv_bfloat16> {
                                                 float b) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
   }
+  static __device__ __forceinline__ void store1(__nv_bfloat16* p, float a) {
+    *p = __float2bfloat16_rn(a);
+  }
 };
 
 // Output columns of a thread: NG groups of G consecutive columns.  For
-// h >= 64, group g is columns 64 g + 4 tx .. + 3 (a row of 16 threads
-// reads 256 contiguous bytes of V); for h = 32, columns 2 tx, 2 tx + 1.
+// h = 64 and 128, group g is columns 64 g + 4 tx .. + 3 (a row of 16
+// threads reads 256 contiguous bytes of V); for h = 32, columns 2 tx,
+// 2 tx + 1; for h = 80 (5 x 16 columns), the single columns 16 g + tx.
 template <int H> struct Cols {
-  static constexpr int G = H >= 64 ? 4 : 2;
+  static_assert(H % 16 == 0, "a row of 16 threads splits the head");
+  static constexpr int G = H % 64 == 0 ? 4 : H == 32 ? 2 : 1;
   static constexpr int NG = H / (16 * G);
   static __device__ __forceinline__ int col(int tx, int g) {
-    return H >= 64 ? 64 * g + 4 * tx : 2 * tx;
+    return G == 4 ? 64 * g + 4 * tx : G == 2 ? 2 * tx : 16 * g + tx;
   }
 };
 
@@ -264,10 +273,12 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
             const float4 v4 =
                 *reinterpret_cast<const float4*>(vr + C::col(tx, g));
             vv[0] = v4.x; vv[1] = v4.y; vv[2] = v4.z; vv[3] = v4.w;
-          } else {
+          } else if constexpr (C::G == 2) {
             const float2 v2 =
                 *reinterpret_cast<const float2*>(vr + C::col(tx, g));
             vv[0] = v2.x; vv[1] = v2.y;
+          } else {
+            vv[0] = vr[C::col(tx, g)];
           }
 #pragma unroll
           for (int i = 0; i < 4; ++i)
@@ -294,8 +305,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         IO<T>::store4(orow + C::col(tx, g),
                       make_float4(a[0] / den, a[1] / den, a[2] / den,
                                   a[3] / den));
-      else
+      else if constexpr (C::G == 2)
         IO<T>::store2(orow + C::col(tx, g), a[0] / den, a[1] / den);
+      else
+        IO<T>::store1(orow + C::col(tx, g), a[0] / den);
     }
   }
 }
@@ -328,6 +341,7 @@ int flash_impl(const void* q, const void* k, const void* v, void* o, int B,
   switch (h) {
     case 32: return launch<T, 32>(qt, kt, vt, ot, B, nq, nkv, Sq, Sk, st, scale, causal, s);
     case 64: return launch<T, 64>(qt, kt, vt, ot, B, nq, nkv, Sq, Sk, st, scale, causal, s);
+    case 80: return launch<T, 80>(qt, kt, vt, ot, B, nq, nkv, Sq, Sk, st, scale, causal, s);
     case 128: return launch<T, 128>(qt, kt, vt, ot, B, nq, nkv, Sq, Sk, st, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)        # head dims the kernel is compiled for
+HEAD_DIMS = (32, 64, 80, 128)    # head dims the kernel is compiled for
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = ([_P] * 4 + [_I] * 6 + [_L] * 12
              + [ctypes.c_float, _I, _P])

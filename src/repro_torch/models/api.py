@@ -1,9 +1,10 @@
 """Uniform model API: ``build_model(cfg)`` -> ``ModelBundle``.
 
 The bundle exposes the JAX package's entry points (init, train_loss,
-prefill, decode_step, init_cache) on torch tensors.  Only the dense
-family is ported; the others raise, naming the ROADMAP item that ports
-them.  Everything runs on ``cuda`` unless ``device="cpu"`` is asked for.
+prefill, decode_step, init_cache) on torch tensors.  The dense, ssm and
+hybrid families are ported; the others raise, naming the ROADMAP item
+that ports them.  Everything runs on ``cuda`` unless ``device="cpu"`` is
+asked for.
 """
 from __future__ import annotations
 
@@ -14,14 +15,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, ssm_lm, transformer
 from repro_torch.models.params import Specs, init_params, param_count
 
 # families of the JAX package not ported yet -> the ROADMAP item
 PENDING_FAMILIES = {
     "moe": "ROADMAP Slice C item 11",
-    "ssm": "ROADMAP Slice C item 12",
-    "hybrid": "ROADMAP Slice C item 12",
     "encdec": "ROADMAP Slice C item 13",
     "vlm": "ROADMAP Slice C item 13",
 }
@@ -55,16 +54,20 @@ def build_model(cfg: ArchConfig,
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet "
             f"({PENDING_FAMILIES[cfg.family]})")
-    if cfg.family != "dense":
+    families = {"dense": (transformer, transformer.lm_specs),
+                "ssm": (ssm_lm, ssm_lm.ssm_lm_specs),
+                "hybrid": (hybrid, hybrid.hybrid_specs)}
+    if cfg.family not in families:
         raise ValueError(f"unknown family {cfg.family!r}")
+    module, specs_of = families[cfg.family]
     dev = torch.device("cuda" if device is None else device)
     pdt, cdt = cfg.pdtype(), cfg.cdtype()
-    specs = transformer.lm_specs(cfg)
+    specs = specs_of(cfg)
     return ModelBundle(
         cfg=cfg, specs=specs, device=dev,
         init=lambda generator: init_params(specs, generator, pdt),
-        train_loss=functools.partial(transformer.train_loss, cfg),
-        prefill=functools.partial(transformer.prefill, cfg),
-        decode_step=functools.partial(transformer.decode_step, cfg),
-        init_cache=lambda b, s: transformer.init_cache(cfg, b, s, cdt, dev),
+        train_loss=functools.partial(module.train_loss, cfg),
+        prefill=functools.partial(module.prefill, cfg),
+        decode_step=functools.partial(module.decode_step, cfg),
+        init_cache=lambda b, s: module.init_cache(cfg, b, s, cdt, dev),
     )

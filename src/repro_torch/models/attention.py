@@ -158,21 +158,26 @@ def attention_decode(cfg: ArchConfig, p: Dict[str, torch.Tensor],
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode. x: (B, 1, D); caches (B, S_max, n_kv, h).
 
-    The new K/V are written at position ``lengths`` of each row through a
-    one-hot blend, as the JAX package does (a row whose cache is full gets
-    an all-zero one-hot and is left as it is), and the query sees
-    positions ``<= lengths``.
-    Returns (out (B,1,D), new_k_cache, new_v_cache).
+    The new K/V are written into the caches in place, at position
+    ``lengths`` of each row; a row whose cache is full is left as it is.
+    That is the JAX package's one-hot blend without rewriting every slot:
+    the same cache values, one slot a row written.  A caller that keeps
+    the caches from before the step still reads them right, as that slot
+    lies past its length and is written again before it is read.  The
+    query sees positions ``<= lengths``.
+    Returns (out (B,1,D), k_cache, v_cache).
     """
     B, one, _ = x.shape
     S_max = k_cache.shape[1]
     positions = lengths[:, None]                                    # (B, 1)
     q, k, v = qkv(cfg, p, x, positions)
+    rows = torch.arange(B, device=x.device)
+    slot = lengths.clamp(max=S_max - 1).long()
+    full = (lengths >= S_max)[:, None, None]
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        cache[rows, slot] = torch.where(full, cache[rows, slot],
+                                        new[:, 0].to(cache.dtype))
     slots = torch.arange(S_max, device=x.device)[None, :]
-    onehot = (slots == lengths[:, None]).to(k.dtype)                # (B, S_max)
-    oh = onehot[..., None, None]
-    k_cache = k_cache * (1 - oh) + oh * k
-    v_cache = v_cache * (1 - oh) + oh * v
     valid = slots <= lengths[:, None]                               # (B, S_max)
     mask = valid[:, None, None, None, :]                            # b k g s t
     out = gqa_attend(q, k_cache, v_cache, mask,

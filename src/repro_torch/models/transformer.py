@@ -163,22 +163,19 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any],
 def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: LMCache,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, LMCache]:
     """One decode step. tokens: (B, 1) int; returns (logits (B, 1, V),
-    the cache one token longer)."""
+    the cache one token longer).  Each layer's new K/V is written into the
+    cache's buffers in place (``attention_decode``)."""
     _dense_only(cfg)
     kv = cache.kv
     x = embed_tokens(params["embed"], tokens)
-    ks, vs = [], []
     for i in range(cfg.n_layers):
         p = layer_params(params["layers"], i)
         xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        o, k_c, v_c = attn.attention_decode(cfg, p["attn"], xn, kv.k[i],
-                                            kv.v[i], kv.length)
+        o, _, _ = attn.attention_decode(cfg, p["attn"], xn, kv.k[i],
+                                        kv.v[i], kv.length)
         h = x + o
         hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
         x = h + mlp_apply(cfg, p["mlp"], hn)
-        ks.append(k_c)
-        vs.append(v_c)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_for(params["embed"], h)
-    return logits, LMCache(attn.KVCache(torch.stack(ks), torch.stack(vs),
-                                        kv.length + 1))
+    return logits, LMCache(kv._replace(length=kv.length + 1))

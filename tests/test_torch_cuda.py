@@ -98,6 +98,11 @@ FLASH_CASES = [
     (1, 4, 2, 100, 100, 64, True, torch.float32),
     (4, 32, 4, 2048, 2048, 64, True, torch.float32),
     (4, 32, 4, 2048, 2048, 64, True, torch.bfloat16),
+    # head dim 80 (zamba2-2.7b's 2560 / 32): small, then its full layer
+    (1, 4, 2, 128, 128, 80, True, torch.float32),
+    (1, 4, 2, 128, 128, 80, True, torch.bfloat16),
+    (2, 32, 32, 2048, 2048, 80, True, torch.float32),
+    (2, 32, 32, 2048, 2048, 80, True, torch.bfloat16),
 ]
 
 
@@ -137,3 +142,107 @@ def test_flash_attention_op_in_models_layout(card):
     q.requires_grad_(True)
     with pytest.raises(NotImplementedError):
         fo.flash_attention(q, k, v).sum().backward()
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    q = torch.zeros((1, 2, 64, 64), device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        fk.flash_attention(q[..., :48], q[..., :48], q[..., :48],
+                           causal=True, softmax_scale=1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fk.flash_attention(q.half(), q.half(), q.half(), causal=True,
+                           softmax_scale=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.flash_attention(q, q.cpu(), q, causal=True, softmax_scale=1.0)
+
+
+# -- ssd scan: the CUDA kernel against its plain version ------------------
+
+# (B, S, H, P, N, chunk): the reference's sweep (tests/test_kernels.py),
+# ragged S = 100 among them, and a sequence shorter than its chunk
+SSD_CASES = [
+    (1, 64, 2, 32, 16, 32),
+    (2, 128, 4, 64, 32, 64),
+    (1, 96, 2, 32, 16, 32),
+    (2, 100, 3, 16, 8, 64),
+    (1, 256, 1, 64, 64, 64),
+    (1, 37, 2, 16, 16, 64),
+]
+
+
+def ssd_inputs(B, S, H, P, N, seed, dev):
+    """The reference's ``_ssd_inputs`` (tests/test_kernels.py), as torch
+    tensors on ``dev``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P))
+    dt = np.abs(rng.standard_normal((B, S, H))) * 0.1
+    A = -(np.abs(rng.standard_normal((H,))) + 0.1)
+    Bm = rng.standard_normal((B, S, N))
+    Cm = rng.standard_normal((B, S, N))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (x, dt, A, Bm, Cm)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(card, case):
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan import ops as so
+    from repro_torch.kernels.ssd_scan import ref as sr
+    B, S, H, P, N, chunk = case
+    args = ssd_inputs(B, S, H, P, N, sum(case), card)
+    before = sk.ssd_scan.launches
+    y, h = so.ssd_scan(*args, chunk=chunk, return_final=True)
+    yr, hr = sr.ssd_ref(*args, chunk=chunk, return_final=True)
+    torch.cuda.synchronize()
+    assert sk.ssd_scan.launches == before + 1
+    assert y.shape == (B, S, H, P) and h.shape == (B, H, N, P)
+    torch.testing.assert_close(y, yr, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, hr, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_wrapper_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    x, dt, A, Bm, Cm = ssd_inputs(1, 64, 2, 32, 16, 0, card)
+    with pytest.raises(ValueError, match="not one of"):
+        sk.ssd_scan(x[..., :8].contiguous(), dt, A, Bm, Cm, chunk=32)
+    with pytest.raises(TypeError, match="float32"):
+        sk.ssd_scan(x.double(), dt, A, Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.ssd_scan(x, dt, A.cpu(), Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="divide"):
+        sk.ssd_scan(x, dt, A, Bm, Cm, chunk=48)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                    Bm, Cm, chunk=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_smoke_model_loss_through_the_kernels(card, arch):
+    """A smoke-size loss through the kernels equals the plain path's.  The
+    hybrid smoke config's 16-wide heads are widened to 32 (two heads), a
+    width the flash kernel is built for."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.models import build_model
+    from repro_torch.models.hybrid import n_attn_sites
+    cfg = get_smoke(arch)
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(n_heads=2, n_kv_heads=2)
+    plain = build_model(cfg)
+    kern = build_model(cfg.replace(use_kernels=True))
+    params = plain.init(plain.generator(0))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 65))).to(card)
+    before = (sk.ssd_scan.launches, fk.flash_attention.launches)
+    got = float(kern.train_loss(params, {"tokens": toks})[0])
+    sites = n_attn_sites(cfg) if cfg.family == "hybrid" else 0
+    assert (sk.ssd_scan.launches - before[0],
+            fk.flash_attention.launches - before[1]) == (cfg.n_layers, sites)
+    want = float(plain.train_loss(params, {"tokens": toks})[0])
+    assert np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want)

@@ -54,7 +54,13 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core",
            "repro_torch.configs.base", "repro_torch.configs.tinyllama_1_1b",
            "repro_torch.models", "repro_torch.models.params",
            "repro_torch.models.layers", "repro_torch.models.attention",
-           "repro_torch.models.transformer", "repro_torch.models.api"]
+           "repro_torch.models.transformer", "repro_torch.models.api",
+           "repro_torch.configs.mamba2_130m", "repro_torch.configs.zamba2_2_7b",
+           "repro_torch.models.mamba2", "repro_torch.models.ssm_lm",
+           "repro_torch.models.hybrid", "repro_torch.kernels.ssd_scan",
+           "repro_torch.kernels.ssd_scan.kernel",
+           "repro_torch.kernels.ssd_scan.ops",
+           "repro_torch.kernels.ssd_scan.ref"]
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():
@@ -92,15 +98,18 @@ def test_model_entry_points_run_with_jax_and_repro_blocked():
         import torch
         from repro_torch import build_model
         from repro_torch.configs import get_smoke
-        cfg = get_smoke("tinyllama-1.1b").replace(use_kernels=True)
-        m = build_model(cfg, device="cpu")
-        p = m.init(m.generator(0))
-        toks = torch.randint(0, cfg.vocab_size, (2, 17),
-                             generator=torch.Generator().manual_seed(0))
-        loss, _ = m.train_loss(p, {"tokens": toks})
-        logits, cache = m.prefill(p, {"tokens": toks[:, :8]}, 16)
-        logits, cache = m.decode_step(p, cache, logits[:, -1].argmax(-1)[:, None])
-        assert torch.isfinite(loss) and logits.shape == (2, 1, cfg.vocab_size)
+        for arch in ("tinyllama-1.1b", "mamba2-130m", "zamba2-2.7b"):
+            cfg = get_smoke(arch).replace(use_kernels=True)
+            m = build_model(cfg, device="cpu")
+            p = m.init(m.generator(0))
+            toks = torch.randint(0, cfg.vocab_size, (2, 17),
+                                 generator=torch.Generator().manual_seed(0))
+            loss, _ = m.train_loss(p, {"tokens": toks})
+            logits, cache = m.prefill(p, {"tokens": toks[:, :8]}, 16)
+            logits, cache = m.decode_step(p, cache,
+                                          logits[:, -1].argmax(-1)[:, None])
+            assert torch.isfinite(loss)
+            assert logits.shape == (2, 1, cfg.vocab_size)
         print("ok")
     """)
     assert out.returncode == 0, out.stderr
@@ -129,10 +138,11 @@ def test_importing_the_port_builds_nothing():
         from repro_torch.kernels import _build
         from repro_torch.kernels.detect_fused import kernel
         from repro_torch.kernels.flash_attention import kernel as flash
+        from repro_torch.kernels.ssd_scan import kernel as ssd
         assert spawned == [], spawned
         assert _build._LIBS == {{}} and _build.BUILD_LOG == {{}}
         assert kernel.ab_fused.launches == 0 == kernel.ns_fused.launches
-        assert flash.flash_attention.launches == 0
+        assert flash.flash_attention.launches == 0 == ssd.ssd_scan.launches
         print("ok")
     """)
     assert out.returncode == 0, out.stderr
@@ -163,3 +173,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernel.ns_fused(t[None], t[None], torch.zeros(4, 0, 3), None, None,
                         None, tail=False)
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    x = torch.zeros(1, 64, 2, 64)
+    bc = torch.zeros(1, 64, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_scan(x, torch.zeros(1, 64, 2), -torch.ones(2), bc, bc,
+                     chunk=64)
+    assert ssd.ssd_scan.launches == 0

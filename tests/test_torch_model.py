@@ -166,6 +166,36 @@ def test_decode_from_empty_cache_matches_prefill(pair):
                                atol=1e-4)
 
 
+def test_attention_decode_writes_the_cache_in_place(pair):
+    """One row mid-cache, one full: the port writes the new K/V into the
+    caller's buffers (the full row left as it is) and gives the caches
+    and output of the JAX package's one-hot blend."""
+    from repro.models.attention import attention_decode as jax_decode
+    from repro_torch.models.attention import attention_decode
+    from repro_torch.models.transformer import layer_params
+    cfg, _, jp, _, tp = pair
+    rng = np.random.default_rng(3)
+    S_max, hd = 8, cfg.resolved_head_dim()
+    x = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    kc, vc = (rng.standard_normal((2, S_max, cfg.n_kv_heads, hd))
+              .astype(np.float32) for _ in range(2))
+    lengths = np.array([3, S_max], np.int32)
+    jo, jk, jv = jax_decode(cfg, jax.tree.map(lambda a: a[0],
+                                              jp["layers"]["attn"]),
+                            x, kc, vc, lengths)
+    tk, tv = _t(kc.copy()), _t(vc.copy())
+    to, rk, rv = attention_decode(get_smoke(ARCH),
+                                  layer_params(tp["layers"], 0)["attn"],
+                                  _t(x), tk, tv, _t(lengths))
+    assert rk is tk and rv is tv
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5)
+    for got, want, before in ((tk, jk, kc), (tv, jv, vc)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+        np.testing.assert_array_equal(got[1].numpy(), before[1])
+        np.testing.assert_array_equal(np.delete(got[0].numpy(), 3, 0),
+                                      np.delete(before[0], 3, 0))
+
+
 def test_chunked_attention_path_matches_einsum(pair, monkeypatch):
     """Above the threshold the plain path loops over query chunks; it
     gives the einsum path's loss."""
@@ -223,12 +253,12 @@ def test_full_config_is_tinyllama():
             cfg.resolved_head_dim(), cfg.d_ff, cfg.vocab_size) == \
         (22, 2048, 32, 4, 64, 5632, 32000)
     assert cfg.pdtype() == cfg.cdtype() == torch.float32
-    assert ARCHS == [ARCH]
+    assert ARCHS == [ARCH, "mamba2-130m", "zamba2-2.7b"]
     with pytest.raises(KeyError, match="not ported yet"):
-        get("mamba2-130m")
+        get("yi-6b")
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["moe", "encdec", "vlm"])
 def test_build_model_refuses_families_not_ported(family):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_smoke(ARCH).replace(family=family), device="cpu")
