@@ -54,6 +54,7 @@ port is not next to it.  The last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -67,6 +68,9 @@ K_WIDE = 1500                   # > 1024 candidates in a column's list
 N_TOP = 20
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP_OPS_PER_S = 67e12            # float32 outside the tensor cores (same)
+TF32_OPS_PER_S = 494.7e12       # dense TF32 on the tensor cores (same)
+BF16_OPS_PER_S = 989e12         # dense bf16 on the tensor cores (same)
+L2_FLUSH_BYTES = 80 << 20       # written before each cold-L2 timing (> 50 MB)
 TOL = {"float64": 1e-12, "float32": 1e-4}
 BANK_PROCS = 2048
 FLEET_SCALES = (8192, 16384, 32768, 65536)
@@ -130,6 +134,56 @@ def smi() -> str:
         "nvidia-smi unavailable"
 
 
+def kernel_name(mangled: str) -> str:
+    """``ab_column<double>`` from the mangled name of a kernel in an
+    anonymous namespace: the last <length><name> of the nested name, then
+    its template arguments (integers, float, double, bf16)."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    args = []
+    if mangled[i:i + 1] == "I":
+        i += 1
+        while i < len(mangled) and mangled[i] != "E":
+            if mangled.startswith("Li", i):
+                j = mangled.index("E", i)
+                args.append(mangled[i + 2:j])
+                i = j + 1
+            elif mangled.startswith("13__nv_bfloat16", i):
+                args.append("bf16")
+                i += 15
+            else:
+                args.append({"f": "float", "d": "double"}.get(mangled[i],
+                                                              mangled[i]))
+                i += 1
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def ptxas_usage(report: str):
+    """(kernel, registers / spills / static shared memory) for each entry
+    function in an ``nvcc -Xptxas -v`` report."""
+    out, cur, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line)
+        if m and cur:
+            smem = m.group(2) or "0"
+            out.append((cur, f"{m.group(1)} registers, {spill}, "
+                             f"{smem} bytes static smem"))
+            cur = None
+    return out
+
+
 def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn()`` after warm-up."""
     import torch
@@ -148,9 +202,42 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: int, n_ops: int):
-    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / FP_OPS_PER_S
+def cuda_ms_cold(fn, reps: int = 20, warm: int = 3) -> float:
+    """``cuda_ms`` with the L2 cache flushed before each timed call: a
+    buffer larger than the L2 is written between the events' records."""
+    import torch
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        flush.fill_(i & 0xFF)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = FP_OPS_PER_S):
+    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def flash_bound(q, k, v, causal_flops: int):
+    """The flash kernel's bound for its design: bytes read and written once
+    over the HBM rate; in f32, three TF32 products per f32 product (3xTF32)
+    over the dense TF32 rate, in bf16 one product over the bf16 rate.  Also
+    the bound of f32 on the CUDA cores."""
+    f32 = q.element_size() == 4
+    n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    design = (bound_ms(n_bytes, 3 * causal_flops, TF32_OPS_PER_S) if f32
+              else bound_ms(n_bytes, causal_flops, BF16_OPS_PER_S))
+    return design, bound_ms(n_bytes, causal_flops)
 
 
 # -- phase 2 inputs ------------------------------------------------------
@@ -314,10 +401,15 @@ def time_kernels():
     ns_bytes = (8 * (2 * tl.numel() + hist.numel() + logp.numel()
                      + 4 * S * V + 2 * 4 * V)
                 + present.numel() + 4 * top.numel() + 4 * V)
+    def ab():
+        return kernel.ab_fused(live_t, None, top, 1.3, 1e-3, K)
+
     return {
         "ab_fused": dict(
-            ms=cuda_ms(lambda: kernel.ab_fused(live_t, None, top, 1.3, 1e-3,
-                                               K)),
+            ms=cuda_ms(ab),
+            # the fleet's steady cycle finds t written by the dirty-row
+            # upload, but a caller may find it cold
+            cold_ms=cuda_ms_cold(ab),
             plain_ms=cuda_ms(lambda: ref.abnormal(live_t, None, top, 1.3,
                                                   1e-3, K)),
             # torch.sort of the keys down each column: the closest single
@@ -499,8 +591,8 @@ def phase_flash():
 def time_flash():
     """The kernel at the full-width f32 layer shape, its plain version and
     SDPA (the library yardstick, never on the port's path) on the same
-    tensors, and the bound: bytes read once and written once over the HBM
-    rate, 2 B nq S^2 h causal FLOPs over the f32 rate."""
+    tensors, and the bound of :func:`flash_bound` for 2 B nq S^2 h causal
+    FLOPs (with the f32 CUDA-core bound beside it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ref
@@ -509,7 +601,7 @@ def time_flash():
     B, nq, nkv, S, _, h, _ = FLASH_FULL
     q, k, v = flash_inputs(case, seed=0)
     scale = h ** -0.5
-    n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    bound, core_bound = flash_bound(q, k, v, 2 * B * nq * S * S * h)
     return dict(
         ms=cuda_ms(lambda: kernel.flash_attention(
             q, k, v, causal=True, softmax_scale=scale)),
@@ -517,7 +609,7 @@ def time_flash():
             q, k, v, causal=True, softmax_scale=scale), reps=10),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=scale, enable_gqa=True)),
-        bound=bound_ms(n_bytes, 2 * B * nq * S * S * h))
+        bound=bound, core_bound=core_bound)
 
 
 def phase_model(arch, train, serve_b, new, long_prefill):
@@ -794,10 +886,11 @@ def phase_flash80():
                                           softmax_scale=scale), reps=10)
     sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, scale=scale))
-    bound = bound_ms(4 * 4 * q.numel(), 2 * B * nq * S * S * h)
+    bound, core = flash_bound(q, k, v, 2 * B * nq * S * S * h)
     print(f"  flash_attention {FLASH_ZAMBA} f32: {ms:.4f} ms  plain "
-          f"{plain:.4f} ms  bound {bound[0]:.4f} ms ({bound[1]})  sdpa "
-          f"{sdpa:.4f} ms")
+          f"{plain:.4f} ms  bound {bound[0]:.4f} ms ({bound[1]}, 3xTF32; "
+          f"CUDA-core f32 {core[0]:.4f} ms)  sdpa {sdpa:.4f} ms  "
+          f"kernel/sdpa {ms / sdpa:.3f}")
 
 
 def _leaves(tree):
@@ -878,9 +971,8 @@ def main() -> int:
         print(f"[device] {card}; kernels built in {wall:.1f} s "
               + ", ".join(f"{n} {s:.1f} s" for n, s in spent.items()))
         for n, report in _build.BUILD_LOG.items():
-            for line in report.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {n}: {line.strip()}")
+            for kern, usage in ptxas_usage(report):
+                print(f"  {n}: {kern}: {usage}")
         print(f"[kernels vs plain] P={P} V={V} S={S} k={K}, {card}")
         err = phase_kernels()
         timing = time_kernels()
@@ -890,6 +982,10 @@ def main() -> int:
             print(f"  {n}: {tm['ms']:.4f} ms  plain {tm['plain_ms']:.4f} ms  "
                   f"bound {tm['bound'][0]:.4f} ms ({tm['bound'][1]})  "
                   f"library {lib} ms  max_abs_err {err[n]:.3g}  [{card}]")
+        ab = timing["ab_fused"]
+        print(f"  ab_fused cold L2: {ab['cold_ms']:.4f} ms (warm "
+              f"{ab['ms']:.4f} ms); kernel / torch.sort of the keys "
+              f"{ab['ms'] / ab['library_ms']:.3f} warm  [{card}]")
         kernel.reset_launches()
         print(f"[bank] {BANK_PROCS} procs, backend=torch on cuda vs numpy")
         phase_bank()
@@ -912,7 +1008,9 @@ def main() -> int:
         timing["flash_attention"] = tm = time_flash()
         print(f"  flash_attention {FLASH_FULL} f32: {tm['ms']:.4f} ms  plain "
               f"{tm['plain_ms']:.4f} ms  bound {tm['bound'][0]:.4f} ms "
-              f"({tm['bound'][1]})  sdpa {tm['library_ms']:.4f} ms  [{card}]")
+              f"({tm['bound'][1]}, 3xTF32; CUDA-core f32 "
+              f"{tm['core_bound'][0]:.4f} ms)  sdpa {tm['library_ms']:.4f} ms"
+              f"  [{card}]")
         launches["flash_attention"] = \
             drive_model(*MODELS[0])["flash_attention"]
         print(f"[model] phase wall time {time.perf_counter() - t_model:.1f} s")

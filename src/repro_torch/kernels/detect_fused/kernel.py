@@ -4,7 +4,8 @@ Two kernels, each a CUDA C++ source under ``csrc/`` with a plain C
 interface:
 
 * ``ab_fused`` (``csrc/ab_fused.cu``) — abnormal detection over a (P, V)
-  time matrix: step time, masked per-column median by radix selection,
+  time matrix: step time, masked per-column median by radix selection
+  over transposed keys, each column split across a thread-block cluster,
   flags, exact top-k.  Replaces the JAX package's Pallas
   ``ab_fused_kernel``.
 * ``ns_fused`` (``csrc/ns_fused.cu``) — non-scalable detection: per-scale
@@ -34,7 +35,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import check as _check, ptr as _ptr
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-AB_THREADS = 1024         # threads of an ab block (csrc/ab_fused.cu NT)
+AB_ROW_TILE = 64          # rows per ab_keys block (csrc/ab_fused.cu KR)
 NS_ROW_TILE = 512         # rows per ns partial block (csrc/ns_fused.cu TP)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,8 +68,15 @@ def _float_dtype(t: torch.Tensor) -> torch.dtype:
     return t.dtype
 
 
-def _key_dtype(dt: torch.dtype) -> torch.dtype:
-    return torch.int64 if dt == torch.float64 else torch.int32
+def _carve(dev: torch.device, sizes) -> list:
+    """One byte buffer cut into 256-byte aligned pieces of ``sizes``:
+    [buffer, address of each piece]."""
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += -(-n // 256) * 256
+    buf = torch.empty(total, dtype=torch.uint8, device=dev)
+    return [buf] + [buf.data_ptr() + o for o in offs]
 
 
 def ab_fused(t: torch.Tensor, valid: Optional[torch.Tensor],
@@ -98,15 +106,14 @@ def ab_fused(t: torch.Tensor, valid: Optional[torch.Tensor],
         _check("valid", valid, dtype=torch.bool, shape=(P,), device=dev)
     _check("top_idx", top_idx, dtype=torch.int32, ndim=1, device=dev)
     lib, fn = _entry("ab_fused", dt)
-    nblk = -(-P // AB_THREADS)
+    nblk = -(-P // AB_ROW_TILE)
     kc = min(k, P)                  # candidate slots per column
+    esz = t.element_size()          # float and key bytes
+    # one workspace: keys (V, P), step / live partials, 2V candidate lists
+    # of kc keys and flat indices, per-column flag counts
+    scratch = _carve(dev, [V * P * esz, nblk * esz, nblk * 4,
+                           2 * V * kc * esz, 2 * V * kc * 4, V * 4])
     empty = torch.empty
-    part_step = empty(nblk, dtype=dt, device=dev)
-    part_live = empty(nblk, dtype=torch.int32, device=dev)
-    cand_key = empty(2 * V * kc, dtype=_key_dtype(dt), device=dev)
-    cand_idx = empty(2 * V * kc, dtype=torch.int32, device=dev)
-    col_count = empty(V, dtype=torch.int32, device=dev)
-    heads = empty(V, dtype=torch.int32, device=dev)
     order = empty(k, dtype=torch.int32, device=dev)
     scores = empty(k, dtype=dt, device=dev)
     count = empty((), dtype=torch.int32, device=dev)
@@ -117,9 +124,7 @@ def ab_fused(t: torch.Tensor, valid: Optional[torch.Tensor],
         rc = fn(t.data_ptr(), _ptr(valid), top_idx.data_ptr(),
                 top_idx.numel(), P, V, float(abnorm_thd), float(min_share),
                 float(step_time) if use_step else 0.0, int(use_step), k,
-                part_step.data_ptr(), part_live.data_ptr(),
-                cand_key.data_ptr(), cand_idx.data_ptr(),
-                col_count.data_ptr(), heads.data_ptr(), order.data_ptr(),
+                *scratch[1:], order.data_ptr(),
                 scores.data_ptr(), count.data_ptr(), typical.data_ptr(),
                 stream)
     lib.raise_on(rc, "ab_fused")

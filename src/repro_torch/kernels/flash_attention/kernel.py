@@ -5,9 +5,11 @@ Pallas ``flash_attention_kernel``.
 The source is built on first use by :mod:`repro_torch.kernels._build`
 (``nvcc`` for ``sm_90a``, keyed by a hash of the source and the flags,
 loaded with ``ctypes``); nothing is compiled or loaded at import time.
-It is built with FMA contraction on (nvcc's default): the products and
-sums are float32 dot products either way, and the kernel agrees with the
-plain version within 2e-5 in float32 without ``-fmad=false``.
+It is built with FMA contraction on (nvcc's default): the kernel's
+products run on the tensor cores (3xTF32 for float32 inputs, which keeps
+float32 accuracy; bf16 products for bfloat16), its softmax in float32 on
+the CUDA cores, and it agrees with the plain version within 2e-5 in
+float32 without ``-fmad=false``.
 
 :func:`flash_attention` checks its CUDA tensors, allocates the output,
 launches on the current stream without synchronising, raises when the C
@@ -26,7 +28,7 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (32, 64, 80, 128)    # head dims the kernel is compiled for
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = ([_P] * 4 + [_I] * 6 + [_L] * 12
+_ARGTYPES = ([_P] * 5 + [_I] * 6 + [_L] * 12
              + [ctypes.c_float, _I, _P])
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 LIBRARY = _build.Library(
@@ -35,10 +37,16 @@ LIBRARY = _build.Library(
     {f"flash_attention_{s}": _ARGTYPES for s in _SUFFIX.values()})
 
 
+def tf32_tile(h: int) -> int:
+    """Keys per K/V tile of the float32 kernel (``Tf32Cfg<H>::BK``)."""
+    return 32 if h >= 128 else 64
+
+
 def _aligned(t: torch.Tensor) -> bool:
-    # the kernel moves 4 elements at a time: 16 bytes in f32, 8 in bf16
-    return (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
-            and t.data_ptr() % (4 * t.element_size()) == 0)
+    # the kernel copies rows to shared memory 16 bytes at a time (cp.async)
+    per = 16 // t.element_size()
+    return (t.stride(-1) == 1 and all(s % per == 0 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -72,13 +80,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _aligned(t):
             raise ValueError(f"flash attention: {name} must have unit last "
-                             "stride, other strides a multiple of 4 and a "
-                             "16-byte aligned start")
+                             "stride, other strides a multiple of 16 bytes "
+                             "and a 16-byte aligned start")
     fn = LIBRARY.entry(f"flash_attention_{_SUFFIX[dt]}")
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    work = None
+    if dt == torch.float32:         # the K/V tiles' TF32 planes
+        bk = tf32_tile(h)
+        work = torch.empty(B * nkv * -(-Sk // bk) * 4 * bk * h,
+                           dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, nq, nkv, Sq, Sk, h, *strides, float(softmax_scale),
+                _build.ptr(work), B, nq, nkv, Sq, Sk, h, *strides,
+                float(softmax_scale),
                 int(bool(causal)), torch.cuda.current_stream(dev).cuda_stream)
     LIBRARY.raise_on(rc, "flash_attention")
     flash_attention.launches += 1

@@ -35,29 +35,63 @@ def _case(dtype, seed=11, S=3, P=3000, V=40, dev="cuda"):
     return put(t, dtype), put(var, dtype), put(present), put(top), logp
 
 
+def _ab_matrix(P, V, dtype, dev, seed):
+    """A (P, V) time matrix on a coarse grid (heavy ties), ~3% stragglers,
+    ~1% dead readings, and its last column all dead (zeros)."""
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(0.5, 1.5, (P, V)) * rng.uniform(0.5, 2.0, (1, V))
+    t *= np.where(rng.random((P, V)) < 0.03, 3.0, 1.0)
+    t = np.round(t, 1)
+    t[rng.random((P, V)) < 0.01] = 0.0
+    t[:, -1] = 0.0
+    return torch.from_numpy(t).to(dev, dtype)
+
+
+# (P, V): P of one row, either side of 1024, 3000 and the fleet's 65536 + 7
+# (no multiple of the key tiles' 64 rows or the cluster's 8 blocks); V of
+# one column, 40, the fleet's 56 and 130 (five 32-column key tiles)
+AB_SHAPES = [(P, V) for P in (1, 1023, 1025, 3000, 65536 + 7)
+             for V in (1, 40, 56, 130)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_ab_fused_matches_plain_exactly(card, dtype):
-    t, _, _, top, _ = _case(dtype)
-    live = t[-1].contiguous()
-    P = live.shape[0]
-    valid = torch.rand(P, generator=torch.Generator().manual_seed(0)) > 0.1
+@pytest.mark.parametrize("shape", AB_SHAPES)
+def test_ab_fused_matches_plain_exactly(card, dtype, shape):
+    """Order, scores, count and typical bit for bit against the plain
+    version: flags far above k and none at all, k above P, candidate lists
+    too long to rank in shared memory, the step-time override, and a
+    ``valid`` mask with dead rows."""
+    P, V = shape
+    live = _ab_matrix(P, V, dtype, card, seed=P + V)
+    top = torch.tensor([0, V // 2, V - 1], dtype=torch.int32, device=card)
+    gen = torch.Generator().manual_seed(P)
+    valid = torch.rand(P, generator=gen) > 0.1
+    valid[0] = True
     pad = torch.cat([valid.nonzero()[:, 0],
                      torch.zeros(int((~valid).sum()), dtype=torch.long)])
-    mask = torch.arange(P) < int(valid.sum())
+    mask = (torch.arange(P) < int(valid.sum())).to(card)
+    pad = pad.to(card)
     blocks = list(live.chunk(3))
-    for k, kw, want in [
-            (64, {}, ref.abnormal(live, None, top, 1.5, 0.001, 64)),
-            (64, dict(step_time=3.25),
-             ref.abnormal(live, None, top, 1.5, 0.001, 64, step_time=3.25)),
-            (64, dict(live=pad.to(card), valid=mask.to(card)),
-             ref.abnormal(live.index_select(0, pad.to(card)), mask.to(card),
-                          top, 1.5, 0.001, 64)),
-            # lists longer than a block's threads, reaching the -inf tail
-            (2000, {}, ref.abnormal(live, None, top, 1.5, 0.001, 2000))]:
-        got = ops.fused_abnormal(blocks, top, 1.5, 0.001, k, **kw)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+    n = P * V
+    cases = [   # (k, thd, op keywords, plain-version arguments)
+        (64, 1.5, {}, (live, None, {})),
+        (4, 1.2, {}, (live, None, {})),                   # flags >> k
+        (64, 1e9, {}, (live, None, {})),                  # no flags
+        (P + 5, 1.5, {}, (live, None, {})),               # k > P
+        (2000, 1.5, {}, (live, None, {})),                # long lists
+        (64, 1.5, dict(step_time=3.25),
+         (live, None, dict(step_time=3.25))),
+        (64, 1.5, dict(live=pad, valid=mask),
+         (live.index_select(0, pad), mask, {})),
+    ]
+    for k, thd, kw, (tp, vp, rk) in cases:
+        k = min(k, n)
+        got = ops.fused_abnormal(blocks, top, thd, 0.001, k, **kw)
+        want = ref.abnormal(tp, vp, top, thd, 0.001, k, **rk)
+        for part, g, w in zip(("order", "scores", "count", "typical"),
+                              got, want):
+            assert torch.equal(g, w), (k, thd, sorted(kw), part)
 
 
 @pytest.mark.cuda
@@ -86,8 +120,8 @@ def test_ns_fused_matches_plain(card, dtype):
 # -- flash attention: the CUDA kernel against its plain version ---------
 
 # (B, nq, nkv, Sq, Sk, h, causal, dtype): the reference's sweep
-# (tests/test_kernels.py), a ragged length the kernel masks itself, and
-# the full-width tinyllama layer
+# (tests/test_kernels.py), a ragged length the kernel masks itself, the
+# full-width tinyllama and zamba2 layers, and h = 32 and 128 at S = 2048
 FLASH_CASES = [
     (1, 2, 2, 64, 64, 32, True, torch.float32),
     (2, 4, 2, 128, 128, 64, True, torch.float32),
@@ -103,6 +137,9 @@ FLASH_CASES = [
     (1, 4, 2, 128, 128, 80, True, torch.bfloat16),
     (2, 32, 32, 2048, 2048, 80, True, torch.float32),
     (2, 32, 32, 2048, 2048, 80, True, torch.bfloat16),
+    # the other compiled head dims at full length
+    (2, 8, 2, 2048, 2048, 32, True, torch.float32),
+    (1, 8, 8, 2048, 2048, 128, True, torch.float32),
 ]
 
 
