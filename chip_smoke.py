@@ -13,7 +13,9 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    launches them) against their plain PyTorch versions on the same card
    tensors, in float64 and float32, at P = 65536 processes, V = 56
    vertices, S = 4 scales, k = 64; with each kernel's time, its plain
-   version's, its bound and one library yardstick;
+   version's, its bound and one library yardstick, and ``ns_fused``'s
+   device time under ``torch.profiler`` (the kernel, and the live op on
+   8 shard blocks) beside its CUDA-event time;
 3. bank — the six ground-truth scenarios at 2048 processes through
    ``backend="torch"`` on the card, each equal to the numpy backend's run
    and above its accuracy floors;
@@ -32,12 +34,16 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    tokens each, twice (the same tokens), and the prompts decoded token by
    token from an empty cache agreeing with prefill;
 6. ssm — the ``ssd_scan`` kernel against its plain version at the
-   reference's sweep, at a sequence shorter than its chunk and at the two
-   full-width shapes, with its time at mamba2's, the plain version's and
-   its bound; the flash kernel at zamba2's layer (h = 80) in float32 and
+   reference's sweep, at a sequence shorter than its chunk and at the
+   three full-width shapes (mamba2's and zamba2's loss shapes, mamba2's
+   32768-token prefill), with its time at each, the plain version's and
+   its bounds (its device time under the profiler is read from the
+   profiled model runs below, a launch at a time); the
+   flash kernel at zamba2's layer (h = 80) in float32 and
    bfloat16 with its time; then mamba2-130m at full width (24 layers,
    random weights from a seed): ``train_loss`` through the kernel against
-   the plain path at tokens (8, 2049), a 32768-token prefill both ways,
+   the plain path at tokens (8, 2049), a 32768-token prefill both ways
+   and once more under the profiler (the SSD kernel's share of it),
    four 128-token prompts served (32 greedy tokens, twice) and decoded
    token by token; then zamba2-2.7b at full width (54 Mamba2 layers, the
    shared attention block at 9 sites): ``train_loss`` both ways at
@@ -94,7 +100,7 @@ MODELS = [("tinyllama-1.1b", ((4, 2049), (2, 4097)), 4, 32, None),
           ("zamba2-2.7b", ((2, 2049),), 2, 16, None)]
 # (B, S, H, P, N, chunk): the reference's SSD sweep (tests/test_kernels.py),
 # a sequence shorter than its chunk, then mamba2-130m's and zamba2-2.7b's
-# loss shapes
+# loss shapes and mamba2-130m's 32768-token prefill
 SSD_SWEEP = [
     (1, 64, 2, 32, 16, 32),
     (2, 128, 4, 64, 32, 64),
@@ -103,7 +109,8 @@ SSD_SWEEP = [
     (1, 256, 1, 64, 64, 64),
     (1, 37, 2, 16, 16, 64),
 ]
-SSD_FULL = [(8, 2048, 24, 64, 128, 64), (2, 2048, 80, 64, 64, 64)]
+SSD_FULL = [(8, 2048, 24, 64, 128, 64), (2, 2048, 80, 64, 64, 64),
+            (1, 32768, 24, 64, 128, 64)]
 SSD_TOL = 2e-4                   # tests/test_kernels.py:117-120
 # full width, relative to max |y| (max |h|): float32 sums of up to
 # Q + N = 192 products in another order, ~1e-6 of the largest value;
@@ -386,7 +393,7 @@ def time_kernels():
     scale: one 65536 x 56 matrix, three historical columns), its plain
     version on the same tensors, one library yardstick, and its bound."""
     import torch
-    from repro_torch.kernels.detect_fused import kernel, ref
+    from repro_torch.kernels.detect_fused import kernel, ops, ref
 
     t, var, present, top, logp, _ = card_tensors(torch.float64)
     live_t = t[-1].contiguous()
@@ -404,6 +411,16 @@ def time_kernels():
     def ab():
         return kernel.ab_fused(live_t, None, top, 1.3, 1e-3, K)
 
+    def ns():
+        return kernel.ns_fused(tl, vl, hist, logp, present, top, **kw)
+
+    # the live op as the fleet calls it: the live scale in 8 shard blocks
+    blocks, vblocks = list(live_t.chunk(8)), list(vl[0].chunk(8))
+
+    def ns_live():
+        return ops.fused_non_scalable_live(blocks, vblocks, hist, logp,
+                                           present, top, **kw)
+
     return {
         "ab_fused": dict(
             ms=cuda_ms(ab),
@@ -417,8 +434,9 @@ def time_kernels():
             library_ms=cuda_ms(lambda: torch.sort(keys, dim=0)),
             bound=bound_ms(ab_bytes, live_t.numel() * 8 + P * N_TOP)),
         "ns_fused": dict(
-            ms=cuda_ms(lambda: kernel.ns_fused(tl, vl, hist, logp, present,
-                                               top, **kw)),
+            ms=cuda_ms(ns), device_ms=device_ms(ns, "ns_fused"),
+            live_device_ms=device_ms(ns_live, "fused_non_scalable_live"),
+            live_ms=cuda_ms(ns_live),
             plain_ms=cuda_ms(lambda: ref.non_scalable(tl, vl, hist, logp,
                                                       present, top, **kw)),
             library_ms=None,           # no single library call merges + fits
@@ -692,7 +710,8 @@ def phase_model(arch, train, serve_b, new, long_prefill):
     # one kernel-path loss at the first shape under the profiler
     batch = {"tokens": tokens(train[0])}
     got = profile_cycle(lambda: kern.train_loss(params, batch)[0],
-                        f"{arch} train_loss")
+                        f"{arch} train_loss", share=("ssd_",) if ssm else
+                        ("flash_", "tf32_planes"))
     losses += 1
     check(abs(float(got) - float(plain.train_loss(params, batch)[0])) < 1e-3,
           f"{arch}: the profiled loss differs from the plain path's")
@@ -720,6 +739,11 @@ def phase_model(arch, train, serve_b, new, long_prefill):
               f"{d:.3g}, final states rel err {e:.3g}, conv {ec:.3g} "
               f"(tol {STATE_TOL})")
         del kcache, pcache
+        profile_cycle(lambda: kern.prefill(params, {"tokens": toks},
+                                           long_prefill)[0],
+                      f"{arch} prefill 1 x {long_prefill}",
+                      share=("ssd_",))
+        prefills += 1
 
     prompts = tokens((serve_b, PROMPT))
 
@@ -814,10 +838,9 @@ def phase_ssd():
                   f"(tol {SSD_FULL_TOL} of max |y|, max |h|)")
             if case == SSD_FULL[0]:
                 err = dy
-            bound = ssd_bound(case)
             print(f"  ssd_scan {case}: max abs err y {dy:.3g} h {dh:.3g}; "
                   f"rel to max |y| {ey:.3g}, max |h| {eh:.3g} within "
-                  f"{SSD_FULL_TOL}; bound {bound[0]:.4f} ms ({bound[1]})")
+                  f"{SSD_FULL_TOL}")
         else:
             for g, w in ((y, yr), (h, hr)):
                 ok = bool(((g - w).abs() <= SSD_TOL + SSD_TOL * w.abs()).all())
@@ -831,30 +854,43 @@ def phase_ssd():
 def ssd_bound(case):
     """The least time of the SSD scan at ``case``: x, dt, A, B, C read
     once and y and the final state written once, over the HBM rate; the
-    chunked SSD's products over the f32 rate.  Per (batch row, head,
-    chunk) those are C B^T and M x on the causal triangle only, Q(Q+1)/2
-    (N + P) multiply-adds, and C h_prev and B^T (w x), 2 Q N P."""
+    chunked SSD's products, three TF32 products per f32 product (3xTF32)
+    over the dense TF32 rate, as the kernel runs them.  Those are C B^T
+    on the causal triangle, Q(Q+1)/2 N multiply-adds per (batch row,
+    chunk), as B and C are shared by every head; and per (batch row,
+    head, chunk) M x on the triangle, Q(Q+1)/2 P, and C h_prev and
+    B^T (w x), 2 Q N P.  Also the bound of the same products in f32 on
+    the CUDA cores."""
     B, S, H, Pd, N, Q = case
     n_bytes = 4 * (2 * B * S * H * Pd + B * S * H + H + 2 * B * S * N
                    + B * H * N * Pd)
-    macs = (Q * (Q + 1) // 2 * (N + Pd) + 2 * Q * N * Pd) * B * H * (S // Q)
-    return bound_ms(n_bytes, 2 * macs)
+    tri = Q * (Q + 1) // 2
+    macs = B * (S // Q) * (tri * N + H * (tri * Pd + 2 * Q * N * Pd))
+    return (bound_ms(n_bytes, 3 * 2 * macs, TF32_OPS_PER_S),
+            bound_ms(n_bytes, 2 * macs))
 
 
 def time_ssd():
-    """The kernel at mamba2-130m's loss shape, its plain version on the
-    same tensors, and its bound.  No single library call computes it."""
+    """The kernel at each full shape (mamba2-130m's loss shape, zamba2-
+    2.7b's, mamba2-130m's 32768-token prefill), its plain version on the
+    same tensors, and its bounds; the first shape is the JSON line's row,
+    the others are printed.  No single library call computes it."""
+    import torch
     from repro_torch.kernels.ssd_scan import kernel, ref
 
-    case = SSD_FULL[0]
-    Q = case[5]
-    args = ssd_inputs(case, seed=sum(case))
-    return dict(
-        ms=cuda_ms(lambda: kernel.ssd_scan(*args, chunk=Q)),
-        plain_ms=cuda_ms(lambda: ref.ssd_ref(*args, chunk=Q,
-                                             return_final=True), reps=10),
-        library_ms=None,
-        bound=ssd_bound(case))
+    out = []
+    for case in SSD_FULL:
+        Q = case[5]
+        args = ssd_inputs(case, seed=sum(case))
+        bound, core = ssd_bound(case)
+        out.append(dict(
+            case=case, ms=cuda_ms(lambda: kernel.ssd_scan(*args, chunk=Q)),
+            plain_ms=cuda_ms(lambda: ref.ssd_ref(*args, chunk=Q,
+                                                 return_final=True), reps=5),
+            library_ms=None, bound=bound, core_bound=core))
+        del args
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_flash80():
@@ -898,12 +934,14 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def profile_cycle(fn, what: str = "detect cycle"):
+def profile_cycle(fn, what: str = "detect cycle", share: tuple = ()):
     """One steady detect cycle (or ``what``) under ``torch.profiler``:
     device time per kernel, and the device's busy share of the cycle's
-    wall time.  Returns ``fn()``'s result.  A profiler that cannot trace
-    the card says so and the run goes on; a failure of the cycle itself
-    fails the smoke."""
+    wall time; with ``share``, the names of one op's kernels, also the
+    share of the busy time they take, and their time per launch of the
+    first (one a call of the op).  Returns ``fn()``'s result.
+    A profiler that cannot trace the card says so and the run goes on; a
+    failure of the cycle itself fails the smoke."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     ran = False
@@ -937,7 +975,56 @@ def profile_cycle(fn, what: str = "detect cycle"):
           f"({100 * busy / wall:.1f}%), idle {100 - 100 * busy / wall:.1f}%")
     for ms, n, key in sorted(rows, reverse=True)[:10]:
         print(f"    {ms:8.4f} ms  x{n:<3d} {key[:90]}")
+    if share:
+        mine = [(ms, n, key) for ms, n, key in rows
+                if any(name in key for name in share)]
+        ms = sum(m for m, _, _ in mine)
+        n = sum(c for _, c, key in mine if share[0] in key)
+        parts = ", ".join(
+            f"*{name}* {sum(m for m, _, k in mine if name in k):.3f} ms"
+            for name in share[1:])
+        print(f"  *{'* + *'.join(share)}* in {what}: {ms:.3f} ms over {n} "
+              f"calls ({ms / max(n, 1):.4f} ms a call)"
+              + (f", of which {parts}" if parts else "")
+              + f", {100 * ms / busy:.1f}% of device busy, "
+              f"{100 * ms / wall:.1f}% of wall")
     return out
+
+
+def device_ms(fn, what: str, reps: int = 5):
+    """Device time of one ``fn()`` (``what``) under ``torch.profiler``:
+    every CUDA kernel, copy and set it runs, summed, in each of ``reps``
+    profiled calls (one profiler session a call, after a warm-up call);
+    the median, or None when the profiler traces no device time.  A
+    failure of ``fn()`` fails the smoke."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    try:
+        for _ in range(reps):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                try:
+                    fn()
+                    torch.cuda.synchronize()
+                except Exception as e:
+                    raise SmokeFailure(f"profiled {what}: "
+                                       f"{type(e).__name__}: {e}") from e
+            total = 0.0
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    us = getattr(e, "self_device_time_total", None)
+                    total += e.self_cuda_time_total if us is None else us
+            times.append(total / 1e3)
+    except SmokeFailure:
+        raise
+    except Exception as e:                     # the profiler's own failure
+        print(f"  profiler: no device trace ({type(e).__name__}: {e})")
+        return None
+    ms = statistics.median(times)
+    return ms if ms > 0 else None
 
 
 def main() -> int:
@@ -982,6 +1069,15 @@ def main() -> int:
             print(f"  {n}: {tm['ms']:.4f} ms  plain {tm['plain_ms']:.4f} ms  "
                   f"bound {tm['bound'][0]:.4f} ms ({tm['bound'][1]})  "
                   f"library {lib} ms  max_abs_err {err[n]:.3g}  [{card}]")
+        nst = timing["ns_fused"]
+        print("  ns_fused device time (torch.profiler, median of 5): kernel "
+              + ("not traced" if nst["device_ms"] is None else
+                 f"{nst['device_ms']:.4f} ms")
+              + ", fused_non_scalable_live on 8 shard blocks "
+              + ("not traced" if nst["live_device_ms"] is None else
+                 f"{nst['live_device_ms']:.4f} ms")
+              + f" (CUDA events {nst['ms']:.4f} ms, live op "
+              f"{nst['live_ms']:.4f} ms)  [{card}]")
         ab = timing["ab_fused"]
         print(f"  ab_fused cold L2: {ab['cold_ms']:.4f} ms (warm "
               f"{ab['ms']:.4f} ms); kernel / torch.sort of the keys "
@@ -1019,10 +1115,14 @@ def main() -> int:
         print(f"[ssm] ssd_scan and the h = 80 flash kernel; "
               f"{', '.join(m[0] for m in MODELS[1:])} at full width, {card}")
         err["ssd_scan"] = phase_ssd()
-        timing["ssd_scan"] = tm = time_ssd()
-        print(f"  ssd_scan {SSD_FULL[0]}: {tm['ms']:.4f} ms  plain "
-              f"{tm['plain_ms']:.4f} ms  bound {tm['bound'][0]:.4f} ms "
-              f"({tm['bound'][1]})  library null  [{card}]")
+        ssd_times = time_ssd()
+        timing["ssd_scan"] = ssd_times[0]
+        for tm in ssd_times:
+            print(f"  ssd_scan {tm['case']}: {tm['ms']:.4f} ms  plain "
+                  f"{tm['plain_ms']:.4f} ms  bound "
+                  f"{tm['bound'][0]:.4f} ms ({tm['bound'][1]}, 3xTF32; "
+                  f"CUDA-core f32 {tm['core_bound'][0]:.4f} ms)  library "
+                  f"null  [{card}]")
         phase_flash80()
         launches["ssd_scan"] = 0
         for spec in MODELS[1:]:

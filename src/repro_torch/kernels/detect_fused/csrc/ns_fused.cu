@@ -1,46 +1,61 @@
 // Non-scalable detection: per-scale merges over rows, historical-column
-// splice, closed-form log-log slope fit, share and flags, for Hopper.
+// splice, closed-form log-log slope fit, share and flags, for Hopper, in
+// one launch.
 //
 // Replaces the JAX package's Pallas kernel ``ns_fused_kernel``
-// (src/repro/kernels/detect_fused/kernel.py:227, body ``_ns_kernel``),
-// and, run without its tail, the jitted ``merge_scale_column``
+// (src/repro/kernels/detect_fused/kernel.py:227, body ``_ns_kernel`` at
+// :170), and, run without its tail, the jitted ``merge_scale_column``
 // (src/repro/kernels/detect_fused/ops.py:334).
 //
 // What bounds it on an H100: the bytes of t and var.  The function reads
 // the (S_d, P, V) time and variance stacks once (2 * S_d * P * V * 8 bytes
-// in f64: 29 MB for one 65536 x 56 scale, about 9 us at 3.35 TB/s) and
+// in f64: 58.7 MB for one 65536 x 56 scale, 17.5 us at 3.35 TB/s) and
 // writes O(S * V); a few operations per element.
 //
-// Design.  The TPU grid (S, NP) walks the row tiles in order and carries
-// the merge accumulators across them in VMEM.  Hopper blocks run in
-// parallel and in no order, so the reduction has two fixed-order stages
-// and no float atomics, and its result is the same on every run:
+// Design: one launch over every SM, a fixed-order two-stage reduction.
+//   1. Every block takes one tile of TP = 256 rows of one scale (a grid of
+//      (ceil(P / TP), S_d) blocks: 256 at the fleet's P = 65536, all
+//      resident at once).  Its 256 threads stay on one column each: with V
+//      <= 256, ``256 / V`` row groups of V threads, so that a warp reads
+//      neighbouring columns of neighbouring rows, a contiguous span, and
+//      each thread keeps U = 16 rows of t and var in flight.  Each thread
+//      folds its rows in order (the same rows and order whichever shard
+//      blocks hold them); the row groups are then summed in order
+//      through shared memory into the tile's partial count, sum, max,
+//      inverse-variance weight sum and weighted sum per column, written
+//      to a scratch buffer.  Wider V takes 256 columns a pass.
+//   2. Each block then takes an integer ticket (no float atomics); the
+//      last block to arrive folds the tiles' partials in tile order (the
+//      tiles split over up to 256 / (S_d V) thread groups whose results
+//      are summed in group order) into each scale's (4, V) merged column
+//      (mean, max, p0, inverse-variance), then, with the tail, splices
+//      the historical columns in front, takes the reference step time
+//      from the "max" row at the last scale (summed over the root-child
+//      columns in order, unless given), fits the slopes over the scales
+//      in order and writes share (0 where the step time is not positive)
+//      and flags.  It resets the ticket for the next launch.  Every sum
+//      is taken in the same order on every run, so the result is too.
+//   * The rows come from a table of up to NB = 16 shard blocks (pointers
+//     and first rows, passed by value in the launch's parameters), so
+//     the live op reads the fleet's shard blocks in place; a stacked
+//     (S_d, P, V) tensor is one block, each scale a fixed stride apart.
 //
-//   1. ns_partial — one block per (row tile of 512 rows, scale), 32 x 8
-//      threads: a warp reads 32 neighbouring columns of one row, so the
-//      loads are coalesced.  Each thread folds its rows in order; the 8
-//      row lanes are then summed in order through shared memory into the
-//      tile's partial count, sum, max, inverse-variance weight sum and
-//      weighted sum per column.
-//   2. ns_reduce — one block per scale: the tiles' partials folded in
-//      tile order into the scale's (4, V) merged column (mean, max, p0,
-//      inverse-variance).  p0 is the reading of the scale's global row 0,
-//      or the mean where that reading is dead.
-//   3. ns_tail — one block over the (4, V) strategy-by-vertex grid: the
-//      historical columns spliced in front, the reference step time from
-//      the "max" row at the last scale (summed over the root-child
-//      columns in order, unless given), the slope fit over the scales in
-//      order, share (0 where the step time is not positive) and flags.
+// Known limits: at V between 129 and 255 a pass leaves 256 - V threads
+// idle; the last block's fold is one block's work (a few microseconds);
+// the ticket is a counter the wrapper keeps per device and stream.
 //
-// merge_scale_column is stages 1 and 2 for one scale.
+// merge_scale_column is this kernel without the tail.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TX = 32, TY = 8;        // ns_partial block: columns x row lanes
-constexpr int TP = 512;               // rows per tile (kernel.py NS_ROW_TILE)
+constexpr int NT = 256;               // threads per block
+constexpr int TP = 256;               // rows per tile (kernel.py NS_ROW_TILE)
+constexpr int NB = 16;                // shard blocks (kernel.py NS_MAX_BLOCKS)
+constexpr int U = 16;                 // rows a thread keeps in flight
+constexpr int FU = 8;                 // tiles' partials in flight, stage 2
 constexpr double VAR_EPS = 1e-18;     // inverse-variance weight 1/(var+eps)
 constexpr int IMAX = 1;               // "max" row of the merged stack
 
@@ -55,100 +70,169 @@ __device__ __forceinline__ float neg_inf<float>() {
   return __int_as_float((int)0xff800000u);
 }
 
-// 1. Per (tile, scale) partials.
+// The rows of one scale: block k holds rows [row0[k], row0[k + 1]) as a
+// contiguous (rows, V) array; scale s of a stacked tensor lies
+// ``scale_stride`` elements after scale 0.
+template <typename T> struct Blocks {
+  const T* t[NB];
+  const T* v[NB];
+  int row0[NB + 1];
+  int nb;
+};
+
+template <typename T> struct Acc {
+  int cnt;
+  T total, wsum, wt, mx;
+  __device__ __forceinline__ Acc()
+      : cnt(0), total(T(0)), wsum(T(0)), wt(T(0)), mx(neg_inf<T>()) {}
+  __device__ __forceinline__ void add(T x, T var) {
+    mx = x > mx ? x : mx;
+    if (x > T(0)) {
+      const T w = T(1) / (var + T(VAR_EPS));
+      cnt += 1;
+      total += x;
+      wsum += w;
+      wt += w * x;
+    }
+  }
+  __device__ __forceinline__ void add(int c, T f0, T f1, T f2, T f3) {
+    cnt += c;
+    total += f0;
+    wsum += f1;
+    wt += f2;
+    mx = f3 > mx ? f3 : mx;
+  }
+};
+
+template <typename T> struct Shared {
+  int cnt[NT];
+  T f[4][NT];
+  bool last;
+};
+
 template <typename T>
-__global__ void __launch_bounds__(TX * TY)
-ns_partial(const T* __restrict__ t, const T* __restrict__ var, int P, int V,
-           int ntiles, int* __restrict__ part_cnt, T* __restrict__ part_f) {
-  __shared__ int s_cnt[TY][TX];
-  __shared__ T s_f[4][TY][TX];
-  const int tile = blockIdx.x, s = blockIdx.y;
-  const int tx = threadIdx.x, ty = threadIdx.y;
+__device__ __forceinline__ void put(Shared<T>& sh, int i, const Acc<T>& a) {
+  sh.cnt[i] = a.cnt;
+  sh.f[0][i] = a.total;
+  sh.f[1][i] = a.wsum;
+  sh.f[2][i] = a.wt;
+  sh.f[3][i] = a.mx;
+}
+template <typename T>
+__device__ __forceinline__ void take(Acc<T>& a, const Shared<T>& sh, int i) {
+  a.add(sh.cnt[i], sh.f[0][i], sh.f[1][i], sh.f[2][i], sh.f[3][i]);
+}
+
+// Stage 1: one tile's per-column partials.
+template <typename T>
+__device__ void tile_partials(const Blocks<T>& in, long long scale_stride,
+                              int P, int V, int ntiles, int tile, int s,
+                              Shared<T>& sh, int* __restrict__ part_cnt,
+                              T* __restrict__ part_f) {
+  const int tid = threadIdx.x;
+  const int CP = V < NT ? V : NT;         // columns a pass
+  const int G = NT / CP;                  // row groups
+  const int grp = tid / CP, cl = tid % CP;
   const int r0 = tile * TP;
   const int r1 = r0 + TP < P ? r0 + TP : P;
-  const size_t sbase = (size_t)s * P * V;
   const size_t o = (size_t)s * ntiles + tile;
-  for (int c0 = 0; c0 < V; c0 += TX) {
-    const int c = c0 + tx;
-    int cnt = 0;
-    T total = T(0), wsum = T(0), wt = T(0), mx = neg_inf<T>();
-    if (c < V) {
-      for (int r = r0 + ty; r < r1; r += TY) {
-        const size_t at = sbase + (size_t)r * V + c;
-        const T x = t[at];
-        mx = x > mx ? x : mx;
-        if (x > T(0)) {
-          const T w = T(1) / (var[at] + T(VAR_EPS));
-          cnt += 1;
-          total += x;
-          wsum += w;
-          wt += w * x;
+  for (int c0 = 0; c0 < V; c0 += CP) {
+    const int c = c0 + cl;
+    Acc<T> a;
+    if (grp < G && c < V) {
+      for (int k = 0; k < in.nb; ++k) {
+        const int lo = r0 > in.row0[k] ? r0 : in.row0[k];
+        const int hi = r1 < in.row0[k + 1] ? r1 : in.row0[k + 1];
+        if (lo >= hi) continue;
+        const T* tb = in.t[k] + s * scale_stride + c;
+        const T* vb = in.v[k] + s * scale_stride + c;
+        // the rows r0 + grp + G i of the tile, as one stacked block would
+        // give them: the same order of sums however the rows are cut
+        int r = lo + ((r0 + grp - lo) % G + G) % G - in.row0[k];
+        const int end = hi - in.row0[k];
+        for (; r + (U - 1) * G < end; r += U * G) {
+          T xv[U], vv[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            xv[u] = tb[(size_t)(r + u * G) * V];
+            vv[u] = vb[(size_t)(r + u * G) * V];
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) a.add(xv[u], vv[u]);
         }
+        for (; r < end; r += G) a.add(tb[(size_t)r * V], vb[(size_t)r * V]);
       }
     }
-    s_cnt[ty][tx] = cnt;
-    s_f[0][ty][tx] = total;
-    s_f[1][ty][tx] = wsum;
-    s_f[2][ty][tx] = wt;
-    s_f[3][ty][tx] = mx;
+    put(sh, tid, a);
     __syncthreads();
-    if (ty == 0 && c < V) {
-      for (int y = 1; y < TY; ++y) {
-        cnt += s_cnt[y][tx];
-        total += s_f[0][y][tx];
-        wsum += s_f[1][y][tx];
-        wt += s_f[2][y][tx];
-        mx = s_f[3][y][tx] > mx ? s_f[3][y][tx] : mx;
-      }
-      part_cnt[o * V + c] = cnt;
-      part_f[(o * 4 + 0) * V + c] = total;
-      part_f[(o * 4 + 1) * V + c] = wsum;
-      part_f[(o * 4 + 2) * V + c] = wt;
-      part_f[(o * 4 + 3) * V + c] = mx;
+    if (grp == 0 && c < V) {
+      for (int y = 1; y < G; ++y) take(a, sh, y * CP + cl);
+      part_cnt[o * V + c] = a.cnt;
+      part_f[(o * 4 + 0) * V + c] = a.total;
+      part_f[(o * 4 + 1) * V + c] = a.wsum;
+      part_f[(o * 4 + 2) * V + c] = a.wt;
+      part_f[(o * 4 + 3) * V + c] = a.mx;
     }
     __syncthreads();
   }
 }
 
-// 2. Partials -> each scale's (4, V) merged column, written to M at
-// scale offset h0 + s of an S_t-scale stack.
+// Stage 2 (the last block): the tiles' partials -> each scale's (4, V)
+// merged column, written to M at scale offset H + s of an S_t-scale stack.
 template <typename T>
-__global__ void ns_reduce(const T* __restrict__ t, int P, int V, int ntiles,
-                          const int* __restrict__ part_cnt,
-                          const T* __restrict__ part_f, T* __restrict__ M,
-                          int S_t, int h0) {
-  const int s = blockIdx.x;
-  for (int c = threadIdx.x; c < V; c += blockDim.x) {
-    int cnt = 0;
-    T total = T(0), wsum = T(0), wt = T(0), mx = neg_inf<T>();
-    for (int tile = 0; tile < ntiles; ++tile) {
-      const size_t o = (size_t)s * ntiles + tile;
-      cnt += part_cnt[o * V + c];
-      total += part_f[(o * 4 + 0) * V + c];
-      wsum += part_f[(o * 4 + 1) * V + c];
-      wt += part_f[(o * 4 + 2) * V + c];
-      const T m = part_f[(o * 4 + 3) * V + c];
-      mx = m > mx ? m : mx;
+__device__ void merge_columns(const Blocks<T>& in, long long scale_stride,
+                              int P, int V, int ntiles, int S_d,
+                              Shared<T>& sh, const int* __restrict__ part_cnt,
+                              const T* __restrict__ part_f, T* __restrict__ M,
+                              int S_t, int H) {
+  const int tid = threadIdx.x;
+  const int I = S_d * V;                  // (scale, column) items
+  const int G = I < NT ? NT / I : 1;      // tile groups an item
+  const int slots = NT / G;
+  const int grp = tid / slots;
+  for (int it0 = 0; it0 < I; it0 += slots) {
+    const int it = it0 + tid % slots;
+    const bool mine = it < I && grp < G;
+    const int s = mine ? it / V : 0, c = mine ? it % V : 0;
+    Acc<T> a;
+    if (mine) {
+      const int k0 = (int)((long long)grp * ntiles / G);
+      const int k1 = (int)((long long)(grp + 1) * ntiles / G);
+#pragma unroll FU
+      for (int k = k0; k < k1; ++k) {
+        const size_t o = (size_t)s * ntiles + k;
+        a.add(__ldcg(part_cnt + o * V + c),
+              __ldcg(part_f + (o * 4 + 0) * V + c),
+              __ldcg(part_f + (o * 4 + 1) * V + c),
+              __ldcg(part_f + (o * 4 + 2) * V + c),
+              __ldcg(part_f + (o * 4 + 3) * V + c));
+      }
     }
-    const bool any = cnt > 0;
-    const T mean = any ? total / T(cnt) : T(0);
-    const T p0raw = P > 0 ? t[(size_t)s * P * V + c] : T(0);
-    const T col[4] = {mean, any ? mx : T(0), p0raw > T(0) ? p0raw : mean,
-                      wsum > T(0) ? wt / wsum : T(0)};
-    for (int j = 0; j < 4; ++j)
-      M[((size_t)j * S_t + h0 + s) * V + c] = col[j];
+    put(sh, tid, a);
+    __syncthreads();
+    if (mine && grp == 0) {
+      for (int y = 1; y < G; ++y) take(a, sh, y * slots + tid % slots);
+      const bool any = a.cnt > 0;
+      const T mean = any ? a.total / T(a.cnt) : T(0);
+      const T p0raw = P > 0 ? in.t[0][s * scale_stride + c] : T(0);
+      const T col[4] = {mean, any ? a.mx : T(0), p0raw > T(0) ? p0raw : mean,
+                        a.wsum > T(0) ? a.wt / a.wsum : T(0)};
+      for (int j = 0; j < 4; ++j)
+        M[((size_t)j * S_t + H + s) * V + c] = col[j];
+    }
+    __syncthreads();
   }
 }
 
-// 3. Splice, reference step time, slope fit, share, flags.
+// The tail: splice, reference step time, slope fit, share, flags.
 template <typename T>
-__global__ void ns_tail(const T* __restrict__ hist, int H, T* __restrict__ M,
-                        int S_t, int V, const T* __restrict__ logp,
-                        const unsigned char* __restrict__ present,
-                        const int* __restrict__ top, int ntop, T ideal,
-                        T margin, T min_share, T total_param, int use_total,
-                        T* __restrict__ slope, T* __restrict__ share,
-                        unsigned char* __restrict__ flag) {
+__device__ void tail_fit(const T* __restrict__ hist, int H, T* __restrict__ M,
+                         int S_t, int V, const T* __restrict__ logp,
+                         const unsigned char* __restrict__ present,
+                         const int* __restrict__ top, int ntop, T ideal,
+                         T margin, T min_share, T total_param, int use_total,
+                         T* __restrict__ slope, T* __restrict__ share,
+                         unsigned char* __restrict__ flag) {
   for (int i = threadIdx.x; i < 4 * H * V; i += blockDim.x) {
     const int j = i / (H * V), rem = i % (H * V);
     M[(size_t)j * S_t * V + rem] = hist[i];
@@ -192,25 +276,70 @@ __global__ void ns_tail(const T* __restrict__ hist, int H, T* __restrict__ M,
 }
 
 template <typename T>
-int ns_fused_impl(const T* t, const T* var, const T* hist, const T* logp,
-                  const unsigned char* present, const int* top, int ntop,
-                  int S_d, int P, int V, int H, double ideal, double margin,
-                  double min_share, double total, int use_total, int tail,
-                  int* part_cnt, T* part_f, T* M, T* slope, T* share,
-                  unsigned char* flag, cudaStream_t s) {
-  const int ntiles = P > 0 ? (P + TP - 1) / TP : 1;
+__global__ void __launch_bounds__(NT)
+ns_fused(Blocks<T> in, long long scale_stride, int P, int V, int ntiles,
+         int S_d, int H, int* __restrict__ part_cnt, T* __restrict__ part_f,
+         unsigned* __restrict__ ticket, T* __restrict__ M, int tail,
+         const T* __restrict__ hist, const T* __restrict__ logp,
+         const unsigned char* __restrict__ present,
+         const int* __restrict__ top, int ntop, T ideal, T margin,
+         T min_share, T total, int use_total, T* __restrict__ slope,
+         T* __restrict__ share, unsigned char* __restrict__ flag) {
+  __shared__ Shared<T> sh;
+  const int tile = blockIdx.x, s = blockIdx.y;
+  tile_partials(in, scale_stride, P, V, ntiles, tile, s, sh, part_cnt,
+                part_f);
+  // the partials are visible to every block before the ticket is taken
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned n = atomicAdd(ticket, 1u);
+    sh.last = n == gridDim.x * gridDim.y - 1;
+  }
+  __syncthreads();
+  if (!sh.last) return;
+  __threadfence();
   const int S_t = H + S_d;
-  ns_partial<T><<<dim3(ntiles, S_d), dim3(TX, TY), 0, s>>>(
-      t, var, P, V, ntiles, part_cnt, part_f);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ns_reduce<T><<<S_d, 128, 0, s>>>(t, P, V, ntiles, part_cnt, part_f, M,
-                                   S_t, H);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || !tail) return (int)e;
-  ns_tail<T><<<1, 256, 0, s>>>(hist, H, M, S_t, V, logp, present, top, ntop,
-                               (T)ideal, (T)margin, (T)min_share, (T)total,
-                               use_total, slope, share, flag);
+  merge_columns(in, scale_stride, P, V, ntiles, S_d, sh, part_cnt, part_f, M,
+                S_t, H);
+  if (threadIdx.x == 0) *ticket = 0u;     // ready for the next launch
+  if (!tail) return;
+  __syncthreads();
+  tail_fit(hist, H, M, S_t, V, logp, present, top, ntop, ideal, margin,
+           min_share, total, use_total, slope, share, flag);
+}
+
+template <typename T>
+int ns_fused_impl(const T* const* t, const T* const* var, const int* row0,
+                  int nb, long long scale_stride, const T* hist,
+                  const T* logp, const unsigned char* present, const int* top,
+                  int ntop, int S_d, int P, int V, int H, double ideal,
+                  double margin, double min_share, double total,
+                  int use_total, int tail, int* part_cnt, T* part_f,
+                  unsigned* ticket, T* M, T* slope, T* share,
+                  unsigned char* flag, cudaStream_t s) {
+  if (nb < 1 || nb > NB || S_d < 1 || V < 1 || P < 0 || row0[0] != 0 ||
+      row0[nb] != P)
+    return (int)cudaErrorInvalidValue;
+  // the table holds the blocks that have rows, so that global row 0 is
+  // the first block's first
+  Blocks<T> in = {};
+  in.t[0] = t[0];
+  in.v[0] = var[0];
+  for (int k = 0; k < nb; ++k) {
+    if (row0[k + 1] < row0[k]) return (int)cudaErrorInvalidValue;
+    if (row0[k + 1] == row0[k]) continue;
+    in.t[in.nb] = t[k];
+    in.v[in.nb] = var[k];
+    in.row0[in.nb++] = row0[k];
+  }
+  if (in.nb == 0) in.nb = 1;              // P = 0: no row is read
+  in.row0[in.nb] = P;
+  const int ntiles = P > 0 ? (P + TP - 1) / TP : 1;
+  ns_fused<T><<<dim3(ntiles, S_d), NT, 0, s>>>(
+      in, scale_stride, P, V, ntiles, S_d, H, part_cnt, part_f, ticket, M,
+      tail, hist, logp, present, top, ntop, (T)ideal, (T)margin,
+      (T)min_share, (T)total, use_total, slope, share, flag);
   return (int)cudaGetLastError();
 }
 
@@ -222,25 +351,26 @@ const char* scalana_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-#define NS_ARGS(T)                                                        \
-  const T *t, const T *var, const T *hist, const T *logp,                 \
-      const unsigned char *present, const int *top, int ntop, int S_d,    \
-      int P, int V, int H, double ideal, double margin, double min_share, \
-      double total, int use_total, int tail, int *part_cnt, T *part_f,    \
-      T *M, T *slope, T *share, unsigned char *flag, void *stream
+// ``t`` and ``var``: host arrays of ``nb`` device pointers, the shard
+// blocks in row order, block k starting at global row ``row0[k]``
+// (row0[0] = 0, row0[nb] = P); scale s of each lies ``scale_stride``
+// elements after scale 0.  ``ticket``: a device counter that is 0 before
+// the launch and is 0 again after it.
+#define NS_ARGS(T)                                                         \
+  const T *const *t, const T *const *var, const int *row0, int nb,         \
+      long long scale_stride, const T *hist, const T *logp,                \
+      const unsigned char *present, const int *top, int ntop, int S_d,     \
+      int P, int V, int H, double ideal, double margin, double min_share,  \
+      double total, int use_total, int tail, int *part_cnt, T *part_f,     \
+      unsigned *ticket, T *M, T *slope, T *share, unsigned char *flag,     \
+      void *stream
+#define NS_PASS                                                            \
+  t, var, row0, nb, scale_stride, hist, logp, present, top, ntop, S_d, P, \
+      V, H, ideal, margin, min_share, total, use_total, tail, part_cnt,    \
+      part_f, ticket, M, slope, share, flag, (cudaStream_t)stream
 
-int ns_fused_f64(NS_ARGS(double)) {
-  return ns_fused_impl<double>(t, var, hist, logp, present, top, ntop, S_d, P,
-                               V, H, ideal, margin, min_share, total,
-                               use_total, tail, part_cnt, part_f, M, slope,
-                               share, flag, (cudaStream_t)stream);
-}
+int ns_fused_f64(NS_ARGS(double)) { return ns_fused_impl<double>(NS_PASS); }
 
-int ns_fused_f32(NS_ARGS(float)) {
-  return ns_fused_impl<float>(t, var, hist, logp, present, top, ntop, S_d, P,
-                              V, H, ideal, margin, min_share, total,
-                              use_total, tail, part_cnt, part_f, M, slope,
-                              share, flag, (cudaStream_t)stream);
-}
+int ns_fused_f32(NS_ARGS(float)) { return ns_fused_impl<float>(NS_PASS); }
 
 }  // extern "C"

@@ -15,7 +15,9 @@ Four ops cover the detection tail, each ONE logical launch:
 Dispatch is by the device of the input tensors and nothing else: CUDA
 tensors go to the hand-written kernels in :mod:`.kernel`, CPU tensors to
 their plain versions in :mod:`.ref`.  The CUDA kernels take any P and V
-and mask their own ragged edges, so nothing is padded here.
+and mask their own ragged edges, so nothing is padded here; the
+non-scalable kernel reads the live scale's shard blocks in place (up to
+``kernel.NS_MAX_BLOCKS`` of them), so only the abnormal op concatenates.
 
 Every op bumps ``launch_counts`` and calls the monkeypatchable
 ``on_launch`` hook once per logical launch, so tests and benches can
@@ -51,6 +53,16 @@ def reset_launch_counts() -> None:
 
 def _cat(blocks: Sequence[torch.Tensor]) -> torch.Tensor:
     return blocks[0] if len(blocks) == 1 else torch.cat(tuple(blocks), 0)
+
+
+def _in_place(ts: Sequence[torch.Tensor], vs: Sequence[torch.Tensor]):
+    """The (t, var) blocks as ``kernel.ns_fused`` reads them in place, or
+    each concatenated where there are more blocks than its table holds
+    or a block is not contiguous."""
+    if len(ts) <= kernel.NS_MAX_BLOCKS and all(
+            b.is_contiguous() for b in (*ts, *vs)):
+        return list(ts), list(vs)
+    return _cat(ts)[None], _cat(vs)[None]
 
 
 def _no_top(like: torch.Tensor) -> torch.Tensor:
@@ -135,13 +147,13 @@ def fused_non_scalable_live(ts: Sequence[torch.Tensor],
     one launch.  ``logp`` / ``present`` cover all H + 1 scales (live
     last).  Returns (M (4, H + 1, V), slope, share, flagged bool)."""
     _note_launch("non_scalable_live")
-    t = _cat(ts)[None]
-    v = _cat(vs)[None]
     kw = dict(ideal_slope=ideal_slope, slope_margin=slope_margin,
               min_share=min_share)
-    if t.is_cuda:
+    if ts[0].is_cuda:
+        t, v = _in_place(ts, vs)
         return kernel.ns_fused(t, v, hist, logp, present, top_idx, **kw)
-    return ref.non_scalable(t, v, hist, logp, present, top_idx, **kw)
+    return ref.non_scalable(_cat(ts)[None], _cat(vs)[None], hist, logp,
+                            present, top_idx, **kw)
 
 
 def merge_scale_column(ts: Sequence[torch.Tensor],
@@ -152,11 +164,10 @@ def merge_scale_column(ts: Sequence[torch.Tensor],
     their columns stay device-resident until the underlying blocks
     change (see ``TorchShardView.merged_column``)."""
     _note_launch("merge_column")
-    t = _cat(ts)
-    if t.is_cuda:
-        v = _cat(vs)
-        hist = torch.zeros((4, 0, t.shape[1]), dtype=t.dtype,
-                           device=t.device)
-        return kernel.ns_fused(t[None], v[None], hist, None, None, None,
+    if ts[0].is_cuda:
+        hist = torch.zeros((4, 0, ts[0].shape[1]), dtype=ts[0].dtype,
+                           device=ts[0].device)
+        t, v = _in_place(ts, vs)
+        return kernel.ns_fused(t, v, hist, None, None, None,
                                tail=False)[:, 0]
     return ref.merge_blocks(ts, vs)

@@ -26,11 +26,22 @@ from repro_torch.kernels import _build
 # smoke configs, mamba2-130m (64, 128) and zamba2-2.7b (64, 64)
 SHAPES = ((16, 8), (16, 16), (32, 16), (64, 32), (64, 64), (64, 128))
 MAX_CHUNK = 64
+MAX_CLUSTER = 8           # blocks per (head, batch row): csrc CLMAX
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = _build.Library(
     "ssd_scan",
     Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu",
-    {"ssd_scan_f32": [_P] * 7 + [_I] * 6 + [_P]})
+    {"ssd_scan_f32": [_P] * 7 + [_I] * 7 + [_P]})
+
+
+def cluster_size(B: int, H: int, n_chunks: int, n_sms: int) -> int:
+    """Blocks per (head, batch row): the smallest power of two, at most
+    ``MAX_CLUSTER`` and the number of chunks, that gives every SM a
+    block."""
+    cl = 1
+    while cl < MAX_CLUSTER and B * H * cl < n_sms and 2 * cl <= n_chunks:
+        cl *= 2
+    return cl
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -38,7 +49,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,H,P); dt: (B,S,H); A: (H,); Bm, Cm: (B,S,N): contiguous
     float32 CUDA tensors on one device, S a multiple of ``chunk`` (at
-    most 64).  Returns (y (B,S,H,P), final state (B,H,N,P)), float32."""
+    most 64).  Each (head, batch row)'s chunks are split over
+    :func:`cluster_size` blocks.  Returns (y (B,S,H,P), final state
+    (B,H,N,P)), float32."""
     if x.dim() != 4 or Bm.dim() != 3:
         raise ValueError(f"ssd_scan: x must be 4-d and Bm 3-d, not "
                          f"{x.dim()}-d and {Bm.dim()}-d")
@@ -60,6 +73,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if min(B, H) == 0 or max(B, H) > 65535:
         raise ValueError(f"ssd_scan: batch {B} and heads {H} must be in "
                          "[1, 65535]")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cluster = cluster_size(B, H, S // chunk, sms)
     for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
         if t.data_ptr() % 16:
             raise ValueError(f"ssd_scan: {name} must start 16-byte aligned")
@@ -69,7 +84,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     with torch.cuda.device(dev):
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, H, P, N,
-                chunk, torch.cuda.current_stream(dev).cuda_stream)
+                chunk, cluster, torch.cuda.current_stream(dev).cuda_stream)
     LIBRARY.raise_on(rc, "ssd_scan")
     ssd_scan.launches += 1
     return y, h

@@ -117,6 +117,81 @@ def test_ns_fused_matches_plain(card, dtype):
     assert ((col - w).abs().max() <= tol * w.abs().max()).item()
 
 
+def _rel_ok(got, want, tol):
+    return ((got - want).abs().max() <= tol * want.abs().max()).item()
+
+
+# (S, P, V): P of one row, the fleet's 65536 + 7 (not a multiple of the
+# 256-row tile), V of one column and of 130 (wider than half a block)
+NS_SHAPES = [(3, 1, 40), (2, 65536 + 7, 56), (3, 3000, 1), (2, 3000, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", NS_SHAPES)
+def test_ns_fused_shapes_match_plain(card, dtype, shape):
+    """The stacked op and the merge stage (``tail=False``) against the
+    plain version, flags exact, and two launches bit for bit equal."""
+    from repro_torch.kernels.detect_fused import kernel
+    S, P, V = shape
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    t, var, present, _, _ = _case(dtype, seed=P + V, S=S, P=P, V=V)
+    logp = torch.log(torch.tensor([1000.0 * 2 ** i for i in range(S)],
+                                  dtype=dtype, device=card))
+    top = torch.tensor([0, V - 1], dtype=torch.int32, device=card)
+    hist0 = torch.zeros((4, 0, V), dtype=dtype, device=card)
+    before = kernel.ns_fused.launches
+    got = ops.fused_non_scalable(t, var, logp, present, top_idx=top, **ARGS)
+    again = ops.fused_non_scalable(t, var, logp, present, top_idx=top,
+                                   **ARGS)
+    assert kernel.ns_fused.launches == before + 2
+    want = ref.non_scalable(t, var, hist0, logp, present, top, **ARGS)
+    for g, w in zip(got[:3], want[:3]):
+        assert _rel_ok(g, w, tol)
+    assert torch.equal(got[3], want[3])
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    merged = kernel.ns_fused(t, var, hist0, None, None, None, tail=False)
+    assert _rel_ok(merged, ref.merge_all_stack(t, var), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("sizes", [(1000, 7, 0, 1993), (500,) * 6,
+                                   (100,) * 17])
+def test_ns_fused_reads_shard_blocks_in_place(card, dtype, sizes):
+    """The live op and the merge column over uneven shard blocks (an
+    empty one among them), read in place, and over more blocks than the
+    kernel's table holds (concatenated first), against the plain version
+    of the concatenated scale; the in-place path and the stacked one
+    agree bit for bit (the kernel sums each row in the same place
+    whichever block holds it)."""
+    from repro_torch.kernels.detect_fused import kernel
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    P = sum(sizes)
+    t, var, present, top, logp = _case(dtype, seed=len(sizes), P=P)
+    V = t.shape[2]
+    live, lvar = t[-1].contiguous(), var[-1].contiguous()
+    cut = np.cumsum((0,) + sizes)
+    ts = [live[a:b] for a, b in zip(cut[:-1], cut[1:])]
+    vs = [lvar[a:b] for a, b in zip(cut[:-1], cut[1:])]
+    hist = ref.merge_all_stack(t[:-1], var[:-1])
+    got = ops.fused_non_scalable_live(ts, vs, hist, logp, present, top,
+                                      **ARGS)
+    want = ref.non_scalable(live[None], lvar[None], hist, logp, present,
+                            top, **ARGS)
+    for g, w in zip(got[:3], want[:3]):
+        assert _rel_ok(g, w, tol)
+    assert torch.equal(got[3], want[3])
+    stacked = kernel.ns_fused(live[None], lvar[None], hist, logp, present,
+                              top, **ARGS)
+    for g, a in zip(got, stacked):
+        assert torch.equal(g, a)
+    col = ops.merge_scale_column(ts, vs)
+    assert col.shape == (4, V)
+    assert _rel_ok(col, ref.merge_blocks([live], [lvar]), tol)
+
+
 # -- flash attention: the CUDA kernel against its plain version ---------
 
 # (B, nq, nkv, Sq, Sk, h, causal, dtype): the reference's sweep
@@ -255,6 +330,62 @@ def test_ssd_scan_wrapper_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         sk.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
                     Bm, Cm, chunk=32)
+
+
+def _rel(got, want):
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max()).item()
+
+
+# (B, S, H, P, N, chunk, cluster).  None: the wrapper's own cluster_size,
+# which on an H100's 132 SMs picks 8 blocks for mamba2-130m's 32768-token
+# prefill and for one head at batch 1, 1 for 160 (head, batch row) pairs,
+# 2 for 80, and 8 for six pairs of ten chunks (8 blocks take one or two
+# each); Q = 37 has one chunk.  A number: the blocks forced on the launch
+# (one head over 1 and 2 blocks; ten chunks over 3).
+SSD_CLUSTER_CASES = [
+    (1, 32768, 24, 64, 128, 64, None),
+    (1, 4096, 1, 64, 128, 64, None),
+    (1, 4096, 1, 64, 128, 64, 1),
+    (1, 4096, 1, 64, 128, 64, 2),
+    (2, 512, 80, 64, 64, 64, None),
+    (1, 512, 80, 64, 64, 64, None),
+    (2, 640, 3, 64, 64, 64, None),
+    (2, 640, 3, 64, 64, 64, 3),
+    (1, 37, 2, 16, 16, 64, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CLUSTER_CASES)
+def test_ssd_scan_cluster_split_matches_plain(card, case, monkeypatch):
+    """y and the final state within 2e-5 of their max (chip_smoke.py's
+    SSD_FULL_TOL) whatever the blocks per (head, batch row)."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan import ref as sr
+    B, S, H, P, N, chunk, cluster = case
+    if cluster is not None:
+        monkeypatch.setattr(sk, "cluster_size", lambda *_: cluster)
+    args = ssd_inputs(B, S, H, P, N, S + H, card)
+    Q = min(chunk, S)
+    y, h = sk.ssd_scan(*args, chunk=Q)
+    yr, hr = sr.ssd_ref(*args, chunk=Q, return_final=True)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    assert _rel(y, yr) <= 2e-5 and _rel(h, hr) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_ssd_scan_wrapper_refuses_bad_clusters(card, monkeypatch):
+    """The C entry refuses a cluster outside [1, min(8, chunks)] before
+    it launches."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    args = ssd_inputs(1, 256, 2, 64, 64, 0, card)
+    before = sk.ssd_scan.launches
+    for cluster in (0, 5, 9):        # 256 / 64 = 4 chunks
+        monkeypatch.setattr(sk, "cluster_size", lambda *_: cluster)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            sk.ssd_scan(*args, chunk=64)
+    assert sk.ssd_scan.launches == before
 
 
 @pytest.mark.cuda

@@ -311,3 +311,34 @@ def test_keys_preserve_float_order_and_round_trip(dtype):
     k = ref.to_key(x)
     assert torch.equal(ref.from_key(k, dtype).view(k.dtype), x.view(k.dtype))
     assert (k[1:] > k[:-1]).all()                  # -0.0 sorts below +0.0
+
+
+def test_live_blocks_go_to_the_kernel_in_place_up_to_its_table():
+    """The live op and the merge column hand ``kernel.ns_fused`` the shard
+    blocks themselves up to its table size, and one concatenated
+    (1, P, V) stack above it or for a block that is not contiguous."""
+    from repro_torch.kernels.detect_fused import kernel
+    n = kernel.NS_MAX_BLOCKS
+    t = torch.arange(3 * n * 3, dtype=torch.float64).reshape(3 * n, 3)
+    v = t + 1.0
+    ts, vs = ops._in_place(list(t.chunk(n)), list(v.chunk(n)))
+    assert isinstance(ts, list) and len(ts) == n
+    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(ts, t.chunk(n)))
+    many = [t[i:i + 2] for i in range(0, 3 * n, 2)]       # 24 blocks
+    ts, vs = ops._in_place(many, [b + 1.0 for b in many])
+    assert torch.equal(ts, t[None]) and torch.equal(vs, v[None])
+    strided = [t[:20, ::2], t[20:, ::2]]                  # 2 columns
+    ts, _ = ops._in_place(strided, strided)
+    assert torch.equal(ts, t[None, :, ::2])
+
+
+def test_ns_kernel_wrapper_refuses_cpu_blocks_and_long_tables():
+    from repro_torch.kernels.detect_fused import kernel
+    t = torch.ones((64, 4), dtype=torch.float64)
+    hist = torch.zeros((4, 0, 4), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.ns_fused([t], [t], hist, None, None, None, tail=False)
+    blocks = [t[i:i + 1] for i in range(kernel.NS_MAX_BLOCKS + 1)]
+    with pytest.raises(ValueError, match="blocks"):
+        kernel.ns_fused(blocks, blocks, hist, None, None, None, tail=False)
+    assert kernel.ns_fused.launches == 0

@@ -114,3 +114,17 @@ def test_kernel_wrapper_refuses_cpu_tensors_of_built_shapes():
         with pytest.raises(ValueError, match="CUDA"):
             kernel.ssd_scan(*args, chunk=64)
     assert kernel.ssd_scan.launches == 0
+
+
+@pytest.mark.parametrize("B,H,n_chunks,want", [
+    (8, 24, 32, 1),          # mamba2-130m's loss shape: 192 blocks
+    (2, 80, 32, 1),          # zamba2-2.7b's: 160
+    (1, 24, 512, 8),         # mamba2-130m's 32768-token prefill: 24 x 8
+    (1, 80, 8, 2),           # 80 pairs: two blocks each
+    (1, 1, 64, 8),           # one head at batch 1
+    (2, 3, 10, 8),           # ten chunks over 8 blocks
+    (1, 1, 3, 2),            # no more blocks than chunks
+    (1, 1, 1, 1),
+])
+def test_cluster_size_fills_the_card(B, H, n_chunks, want):
+    assert kernel.cluster_size(B, H, n_chunks, n_sms=132) == want
