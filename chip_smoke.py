@@ -48,11 +48,24 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    token by token; then zamba2-2.7b at full width (54 Mamba2 layers, the
    shared attention block at 9 sites): ``train_loss`` both ways at
    (2, 2049), two 128-token prompts served (16 greedy tokens, twice) and
-   decoded token by token.
+   decoded token by token;
+7. diagnose — the paper's example
+   (``examples/diagnose_scaling_loss_torch.py``) at full width: a tinyllama-1.1b train step (random weights from a
+   seed, ``remat``, AdamW) traced into a PSG (its four top-level loops
+   with trip counts 22, 4, 4, 22) and profiled for four steps at tokens
+   (4, 2049), every second step sampled through the traced graph and
+   equal to the eager step on the same state; the step times, the
+   profiler's overhead and storage, one eager step under the profiler;
+   a 64-process replay with +500 ms at process 17 of the first loop,
+   ``detect_abnormal`` on the card (one ``ab_fused`` launch) equal to
+   numpy's, and the backtrack to the injected root cause; then one
+   mamba2-130m train step at (8, 2049) whose loss equals ``train_loss``.
 
 The detection kernels' launch counts are reset just before phase 3 and
-read just after phase 4; the kernels' counts of each model path just
-before its first loss and just after its serving run.  It exits non-zero, printing no
+read just after phase 4, and again just before phase 7's detect and
+just after it (the JSON line's ``ab_fused`` count is the sum); the
+kernels' counts of each model path just before its first loss and just
+after its serving run.  It exits non-zero, printing no
 result, when any check fails, when there is no CUDA card, or when the
 port is not next to it.  The last line is ``{"ok": true, "device":
 {...}}``.
@@ -959,7 +972,10 @@ def profile_cycle(fn, what: str = "detect cycle", share: tuple = ()):
             wall = (time.perf_counter() - t0) * 1e3
         rows = []
         for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+            # a record_function range (the models' loop scopes) is a
+            # device-side annotation, not device work
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or getattr(e, "is_user_annotation", False)):
                 continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
@@ -1014,7 +1030,8 @@ def device_ms(fn, what: str, reps: int = 5):
                                        f"{type(e).__name__}: {e}") from e
             total = 0.0
             for e in prof.key_averages():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
+                if (e.device_type == torch.autograd.DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False)):
                     us = getattr(e, "self_device_time_total", None)
                     total += e.self_cuda_time_total if us is None else us
             times.append(total / 1e3)
@@ -1025,6 +1042,155 @@ def device_ms(fn, what: str, reps: int = 5):
         return None
     ms = statistics.median(times)
     return ms if ms > 0 else None
+
+
+# -- phase 7: the paper's example at full width ---------------------------
+
+# the contracted PSG's top-level loops of a tinyllama-1.1b step at
+# S = 2048: the layer scan, the loss-chunk scan (2048 / 512 chunks, no
+# remainder), their backwards
+DIAG_LOOPS = [("scan:layers", 22), ("scan:loss_chunks", 4),
+              ("scan:loss_chunks.grad", 4), ("scan:layers.grad", 22)]
+DIAG_PROCS, DIAG_STRAGGLER, DIAG_DELAY = 64, 17, 0.5
+
+
+def phase_diagnose(card: str) -> int:
+    """[diagnose]: ``examples/diagnose_scaling_loss_torch.py`` at full
+    width.  A tinyllama-1.1b train step (random f32 weights from seed 0,
+    ``remat``, the einsum path) profiled four times at tokens (4, 2049),
+    every second step sampled through the traced graph; a 64-process
+    replay with +500 ms at process 17 of the first loop; ``ab_fused`` on
+    the card against numpy; the backtrack to the injected root cause.
+    Then one mamba2-130m step at (8, 2049).  Returns the ``ab_fused``
+    launches of the detect."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import COMM, backtrack, detect_abnormal, root_causes
+    from repro_torch.core.inject import schedule, simulate
+    from repro_torch.core.profiler import GraphProfiler
+    from repro_torch.kernels.detect_fused import kernel
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init, adamw_update, constant
+    from repro_torch.training import TrainState, make_train_step
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def start(arch, shape):
+        cfg = get(arch)
+        check(cfg.remat and not cfg.use_kernels, f"{arch}: config {cfg}")
+        model = build_model(cfg, device=dev)
+        params = model.init(model.generator(0))
+        state = TrainState(params, adamw_init(params), None,
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, shape,
+                                         device=dev, generator=gen)}
+        return model, state, batch, make_train_step(model, RunConfig(),
+                                                    constant(1e-3))
+
+    model, state, batch, step = start("tinyllama-1.1b", (4, 2049))
+    prof = GraphProfiler(step, (state, batch), sample_every=2)
+    psg = prof.psg
+    loops = [(v.name, v.meta["trip_count"]) for v in psg.vertices
+             if v.parent == psg.root and v.kind == "Loop"]
+    print(f"  trace {prof.trace_s:.2f} s: PSG {len(prof.psg_full.vertices)} "
+          f"vertices ({len(prof.traced.graph_module.graph.nodes)} ATen "
+          f"nodes), contracted {len(psg.vertices)}; loops {loops}")
+    check(loops == DIAG_LOOPS, f"diagnose: loops {loops}")
+    for i in range(4):
+        prev = state
+        state, met = prof.step(state, batch)
+        check(all(np.isfinite(float(v)) for v in met.values()),
+              f"diagnose: step {i} metrics {met}")
+        if i == 1:          # the first sampled step, eagerly on its state
+            _, eager = step(prev, batch)
+            for k in ("loss", "grad_norm"):
+                a, b = float(met[k]), float(eager[k])
+                check(abs(a - b) <= 1e-5 * abs(b),
+                      f"diagnose: sampled {k} {a!r} vs eager {b!r}")
+            print(f"  sampled step = eager step on its state: loss "
+                  f"{float(met['loss'])!r} / {float(eager['loss'])!r}, "
+                  f"grad norm {a!r} / {b!r}")
+            del eager
+        del prev
+    times = prof.step_times
+    oh = prof.overhead_estimate()
+    print(f"  steps (host clock, synchronised): fast "
+          f"{[round(t, 4) for t in times[0::2]]} s, sampled "
+          f"{[round(t, 4) for t in times[1::2]]} s; overhead "
+          f"{oh['overhead_frac']:.4f} (base {oh['base_step_s']:.4f} s, "
+          f"sampled {oh['sampled_step_s']:.4f} s)  [{card}]")
+    print(f"  storage {prof.storage_bytes()} B vs full trace "
+          f"{prof.full_trace_bytes()} B")
+    perf = prof.perf_vectors()
+    tops = psg.children(psg.root)
+    check(all(v in perf and perf[v].samples == 2 and perf[v].time >= 0
+              for v in tops), "diagnose: a top-level vertex has no time")
+    print("  per vertex (mean of 2 sampled steps): " + ", ".join(
+        f"v{v} {psg.vertices[v].name} {1e3 * perf[v].time:.2f} ms"
+        for v in tops) + f"  [{card}]")
+    profile_cycle(lambda: step(state, batch)[1]["loss"],
+                  what="eager tinyllama-1.1b step")
+    del model, step
+
+    # the gradient all-reduce every DP step executes, as in the example
+    ar = psg.new_vertex(COMM, "psum(grads)", parent=psg.root,
+                        source="src/repro_torch/optim/adamw.py:"
+                        f"{adamw_update.__code__.co_firstlineno}")
+    ar.comm_kind, ar.comm_bytes = "all_reduce", 8e6
+    psg.add_edge(tops[-1], ar.vid, "data")
+    psg.add_edge(psg.root, ar.vid, "control")
+    target = next(v for v in schedule(psg) if psg.vertices[v].kind == "Loop")
+    check(psg.vertices[target].name == "scan:layers",
+          f"diagnose: first loop {psg.vertices[target].name}")
+    res = simulate(psg, DIAG_PROCS, prof.base_times(),
+                   inject={(DIAG_STRAGGLER, target): DIAG_DELAY})
+    del prof
+    kernel.reset_launches()
+    t0 = time.perf_counter()
+    ab = detect_abnormal(res.ppg, abnorm_thd=1.3, backend="torch", device=dev)
+    secs = time.perf_counter() - t0
+    launches = kernel.ab_fused.launches
+    check((launches, kernel.ns_fused.launches) == (1, 0),
+          f"diagnose: launches ab_fused {launches}, "
+          f"ns_fused {kernel.ns_fused.launches}")
+    want = detect_abnormal(res.ppg, abnorm_thd=1.3, backend="numpy")
+    check([(a.vid, a.proc, a.time, a.typical) for a in ab]
+          == [(a.vid, a.proc, a.time, a.typical) for a in want],
+          "diagnose: abnormal differs from numpy")
+    paths = backtrack(res.ppg, [], ab)
+    hit = any(node == (DIAG_STRAGGLER, target)
+              for node, _, _ in root_causes(paths, psg, ppg=res.ppg))
+    print(f"  injected +{1e3 * DIAG_DELAY:.0f} ms at p{DIAG_STRAGGLER} v"
+          f"{target} ({psg.vertices[target].source}); detect "
+          f"{1e3 * secs:.2f} ms, {len(ab)} abnormal = numpy's; "
+          f"ab_fused launches {launches}")
+    print(f"  root cause recovered: {hit}")
+    check(hit, "diagnose: the injected straggler was not recovered")
+    del state, batch
+    torch.cuda.empty_cache()
+
+    # the SSM family's backward on the card
+    model, state, batch, step = start("mamba2-130m", (8, 2049))
+    with torch.no_grad():
+        want = float(model.train_loss(state.params, batch)[0])
+    step(state, batch)                        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, met = step(state, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got, gnorm = float(met["loss"]), float(met["grad_norm"])
+    check(abs(got - want) <= 1e-6 * abs(want),
+          f"diagnose: mamba2 step loss {got!r} vs train_loss {want!r}")
+    check(np.isfinite(gnorm), f"diagnose: mamba2 grad norm {gnorm}")
+    print(f"  mamba2-130m step (8, 2049): {secs:.4f} s, loss {got:.6f} = "
+          f"train_loss, grad norm {gnorm:.4f}  [{card}]")
+    del model, state, batch, step, new
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1129,6 +1295,13 @@ def main() -> int:
             launches["ssd_scan"] += drive_model(*spec)["ssd_scan"]
             torch.cuda.empty_cache()
         print(f"[ssm] phase wall time {time.perf_counter() - t_ssm:.1f} s")
+        t_diag = time.perf_counter()
+        print(f"[diagnose] the paper's example at full width: tinyllama-1.1b "
+              f"train steps profiled into a PSG, {DIAG_PROCS}-process "
+              f"replay, ab_fused, backtrack; {card}")
+        launches["ab_fused"] += phase_diagnose(card)
+        print(f"[diagnose] phase wall time "
+              f"{time.perf_counter() - t_diag:.1f} s  [{card}]")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -1,8 +1,8 @@
 """ScalAna on PyTorch and CUDA: the port of the ``repro`` JAX package.
 
 The layout mirrors ``repro`` module for module (``configs/``, ``core/``,
-``kernels/``, ``models/``, ``scenarios/``), so each counterpart sits at
-the same path.  The package
+``kernels/``, ``models/``, ``optim/``, ``scenarios/``, ``training/``), so
+each counterpart sits at the same path.  The package
 imports torch and numpy, never jax and nothing of ``repro``; state made
 by the JAX package crosses over as JSON and numpy trees through
 :func:`repro_torch.convert.from_reference` and
@@ -24,6 +24,12 @@ _EXPORTS = {
     "ShardedStore": "core.shard", "TorchShardView": "core.shard",
     "from_reference": "convert", "params_from_reference": "convert",
     "build_model": "models.api",
+    "GraphProfiler": "core.profiler", "build_psg": "core.psg",
+    "contract": "core.contraction",
+    "TrainState": "training.trainer", "make_train_step": "training.trainer",
+    "AdamWState": "optim.adamw", "adamw_init": "optim.adamw",
+    "adamw_update": "optim.adamw", "constant": "optim.schedule",
+    "warmup_cosine": "optim.schedule", "warmup_linear": "optim.schedule",
 }
 
 __all__ = sorted(_EXPORTS)
@@ -47,10 +53,17 @@ def __dir__():
 if TYPE_CHECKING:                     # static analyzers see eager imports
     from repro_torch.convert import from_reference, params_from_reference
     from repro_torch.core.backtrack import backtrack, root_causes
+    from repro_torch.core.contraction import contract
     from repro_torch.core.detect import detect_abnormal, detect_non_scalable
     from repro_torch.core.graph import PPG, PSG, PerfStore
     from repro_torch.core.inject import simulate, simulate_series
     from repro_torch.core.ppg import build_ppg
+    from repro_torch.core.profiler import GraphProfiler
+    from repro_torch.core.psg import build_psg
     from repro_torch.core.report import render_report
     from repro_torch.core.shard import ShardedStore, TorchShardView
     from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
+    from repro_torch.optim.schedule import (constant, warmup_cosine,
+                                            warmup_linear)
+    from repro_torch.training.trainer import TrainState, make_train_step

@@ -3,7 +3,7 @@
 ``get(name)`` returns the full published config; ``get_smoke(name)`` returns a
 reduced same-family config for CPU tests.  ``ARCHS`` lists the ids the port
 has; ``PENDING`` the ones whose model families are not ported yet (each
-config comes with its model, ROADMAP Slice C).
+config comes with its model, ROADMAP Queue 1 items 8-9).
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ PENDING: List[str] = [
 def _module(name: str):
     if name in PENDING:
         raise KeyError(f"architecture {name!r} is not ported yet "
-                       f"(ROADMAP Slice C); ported: {ARCHS}")
+                       f"(ROADMAP Queue 1 items 8-9); ported: {ARCHS}")
     if name not in _MODULES:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

@@ -1,10 +1,12 @@
 """ScalAna core on PyTorch: graph-based scaling-loss detection.
 
-Pipeline (this package's slice):  PSG (committed traces, or converted
-from the JAX package with :func:`repro_torch.convert.from_reference`) ->
-build_ppg / simulate -> detect (non-scalable + abnormal; numpy or the
-torch backend, whose fused detection runs as hand-written CUDA kernels
-on a card) -> backtrack (Algorithm 1) -> render_report.
+Pipeline:  build_psg (static, a traced torch program) -> contract ->
+GraphProfiler (runtime samples) -> build_ppg / simulate -> detect
+(non-scalable + abnormal; numpy or the torch backend, whose fused
+detection runs as hand-written CUDA kernels on a card) -> backtrack
+(Algorithm 1) -> render_report.  A PSG may also come from the committed
+traces, or from the JAX package through
+:func:`repro_torch.convert.from_reference`.
 
 Exports resolve lazily (PEP 562) so the numpy analysis layer (graph /
 detect / backtrack / inject) imports without paying for torch, which
@@ -19,6 +21,8 @@ _EXPORTS = {
     "backtrack_scalar": "backtrack", "root_causes": "backtrack",
     "CommLog": "commdep", "add_comm_edges": "commdep",
     "annotate_from_hlo": "commdep",
+    "contract": "contraction", "GraphProfiler": "profiler",
+    "build_psg": "psg", "scan": "psg",
     "Abnormal": "detect", "NonScalable": "detect",
     "MERGE_STRATEGIES": "detect", "JIT_STRATEGIES": "detect",
     "detect_abnormal": "detect", "detect_non_scalable": "detect",
@@ -70,6 +74,7 @@ if TYPE_CHECKING:                     # static analyzers see eager imports
                                             root_causes)
     from repro_torch.core.commdep import (CommLog, add_comm_edges,
                                           annotate_from_hlo)
+    from repro_torch.core.contraction import contract
     from repro_torch.core.detect import (Abnormal, JIT_STRATEGIES,
                                          MERGE_STRATEGIES, NonScalable,
                                          detect_abnormal,
@@ -83,6 +88,8 @@ if TYPE_CHECKING:                     # static analyzers see eager imports
                                          simulate, simulate_series,
                                          vectorized_base_times)
     from repro_torch.core.ppg import build_ppg
+    from repro_torch.core.profiler import GraphProfiler
+    from repro_torch.core.psg import build_psg, scan
     from repro_torch.core.report import render_report
     from repro_torch.core.shard import (PerfShard, ShardedStore,
                                         TorchShardView, shard_ranges)

@@ -20,9 +20,9 @@ from repro_torch.models.params import Specs, init_params, param_count
 
 # families of the JAX package not ported yet -> the ROADMAP item
 PENDING_FAMILIES = {
-    "moe": "ROADMAP Slice C item 11",
-    "encdec": "ROADMAP Slice C item 13",
-    "vlm": "ROADMAP Slice C item 13",
+    "moe": "ROADMAP Queue 1 item 8",
+    "encdec": "ROADMAP Queue 1 item 9",
+    "vlm": "ROADMAP Queue 1 item 9",
 }
 
 

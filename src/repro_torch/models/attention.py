@@ -6,7 +6,7 @@ the training path's drop-in behind ``cfg.use_kernels``.
 
 The JAX package's sharding hints (``logical_constraint``,
 ``weight_constraint``) are identities on one card and are left out; they
-come back with the launch layer (ROADMAP Slice C).
+come back with the launch layer (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.psg import scan
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rotary, rotary_embedding
 from repro_torch.models.params import P
@@ -85,8 +86,10 @@ def chunked_gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The plain einsum path materializes (B, nkv, g, Sq, Sk) scores; a loop
     over query blocks keeps only (B, nkv, g, BQ, Sk) live.  Numerics match
     :func:`gqa_attend` (float32 softmax over the full key axis, weights
-    cast to ``q.dtype``).  Forward only: the JAX package's per-chunk remat
-    is a backward-pass trade and comes with the train step.
+    cast to ``q.dtype``).  Each block is checkpointed, as the JAX
+    package's per-chunk remat: without it the backward saves softmax
+    weights for every block, the quadratic matrix the loop exists to
+    avoid.
     """
     B, Sq, nq, h = q.shape
     nkv, Sk = k.shape[2], k.shape[1]
@@ -96,16 +99,20 @@ def chunked_gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         BQ -= 1
     kf = k.float()
     cols = torch.arange(Sk, device=q.device)[None, :]
-    outs = []
-    for qi in range(Sq // BQ):
-        blk = q[:, qi * BQ:(qi + 1) * BQ].reshape(B, BQ, nkv, g, h)
-        scores = torch.einsum("bskgh,btkh->bkgst", blk.float(),
+
+    def chunk(_, xs):
+        qi, blk = xs
+        scores = torch.einsum("bskgh,btkh->bkgst",
+                              blk.reshape(B, BQ, nkv, g, h).float(),
                               kf) * softmax_scale
         if causal:
             rows = qi * BQ + torch.arange(BQ, device=q.device)[:, None]
             scores.masked_fill_((cols > rows)[None, None, None], NEG_INF)
         w = torch.softmax(scores, dim=-1).to(q.dtype)
-        outs.append(torch.einsum("bkgst,btkh->bskgh", w, v))
+        return None, torch.einsum("bkgst,btkh->bskgh", w, v)
+
+    blocks = [(qi, q[:, qi * BQ:(qi + 1) * BQ]) for qi in range(Sq // BQ)]
+    _, outs = scan(chunk, None, blocks, name="attn_chunks", remat=True)
     return torch.cat(outs, dim=1).reshape(B, Sq, nq, h)
 
 

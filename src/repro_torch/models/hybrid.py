@@ -1,9 +1,9 @@
 """Zamba2-style hybrid: Mamba2 backbone + one shared attention block.
 
 The shared attention+MLP block (a single parameter set) is applied every
-``attn_every`` layers.  The reference's ``lax.cond`` inside the layer
-scan is a Python ``if`` inside the layer loop; its ``jax.checkpoint``
-(``cfg.remat``) has nothing to do in this forward-only port.  Training
+``attn_every`` layers.  The reference's layer scan is
+:func:`repro_torch.core.psg.scan` with each block checkpointed under
+``cfg.remat``; its ``lax.cond`` is a Python ``if`` in the body.  Training
 attention is ``attention_train`` (the flash kernel under
 ``cfg.use_kernels``); prefill's is ``attend`` (einsum or chunked), as in
 the reference.
@@ -15,6 +15,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.psg import scan
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (
@@ -27,7 +28,8 @@ from repro_torch.models.layers import (
     rms_norm,
 )
 from repro_torch.models.params import P, Specs
-from repro_torch.models.transformer import layer_params, stack_specs
+from repro_torch.models.transformer import (layer_params, stack_specs,
+                                           unbind_layers)
 
 
 def n_attn_sites(cfg: ArchConfig) -> int:
@@ -64,12 +66,16 @@ def _shared_block_train(cfg: ArchConfig, p: Dict[str, Any],
 def backbone_train(cfg: ArchConfig, params: Dict[str, Any],
                    x: torch.Tensor) -> torch.Tensor:
     """All layers over embedded input x: (B, S, D); final-normed."""
-    for idx in range(cfg.n_layers):
-        p = layer_params(params["layers"], idx)
+    def body(x, xs):
+        p, idx = xs
         if idx % cfg.attn_every == 0:
             x = _shared_block_train(cfg, params["shared"], x)
-        x = x + mamba2.ssd_block_train(cfg, p["ssd"],
-                                       rms_norm(x, p["norm"], cfg.norm_eps))
+        return x + mamba2.ssd_block_train(
+            cfg, p["ssd"], rms_norm(x, p["norm"], cfg.norm_eps)), None
+
+    layers = unbind_layers(params["layers"], cfg.n_layers)
+    x, _ = scan(body, x, list(zip(layers, range(cfg.n_layers))),
+                name="layers", remat=cfg.remat)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.psg import scan
 from repro_torch.models.params import P
 
 
@@ -106,8 +107,9 @@ def chunked_cross_entropy(p: Dict[str, torch.Tensor], hidden: torch.Tensor,
                           labels: torch.Tensor, mask: torch.Tensor,
                           chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy without materializing (B, S, V): a loop over sequence
-    chunks of ``chunk`` positions, each a float32 logsumexp, summed in
-    chunk order with the remainder chunk added last.
+    chunks of ``chunk`` positions (:func:`~repro_torch.core.psg.scan`,
+    named ``loss_chunks``), each a float32 logsumexp, summed in chunk
+    order with the remainder chunk added last, outside the loop.
 
     Returns (sum_loss, sum_count) as float32 scalars; caller divides.
     """
@@ -124,12 +126,14 @@ def chunked_cross_entropy(p: Dict[str, torch.Tensor], hidden: torch.Tensor,
         losses = (lse - picked) * m_c
         return torch.sum(losses), torch.sum(m_c)
 
-    loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for i in range(n):
-        s = slice(i * chunk, (i + 1) * chunk)
-        l, c = one(hidden[:, s], labels[:, s], mask[:, s])
-        loss, count = loss + l, count + c
+    def body(carry, xs):
+        l, c = one(*xs)
+        return (carry[0] + l, carry[1] + c), None
+
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    chunks = [(hidden[:, s], labels[:, s], mask[:, s])
+              for s in (slice(i * chunk, (i + 1) * chunk) for i in range(n))]
+    (loss, count), _ = scan(body, (zero, zero), chunks, name="loss_chunks")
     if rem:
         s = slice(n * chunk, S)
         l, c = one(hidden[:, s], labels[:, s], mask[:, s])

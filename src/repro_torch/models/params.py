@@ -4,7 +4,7 @@ Each model declares its parameters once as a (possibly nested) dict of
 ``P(shape, logical_axes, init)``; from that single source initialization
 and parameter counts are derived, consistent with each other.  The
 logical axis names are kept for the launch layer (sharding is not ported
-yet, ROADMAP Slice C) and for the fan-in rule below.
+yet, ROADMAP Queue 1 item 10) and for the fan-in rule below.
 
 Per-layer leaves keep the JAX package's stacked layout: one tensor with
 a leading ``n_layers`` axis per leaf; the layer loop takes views of it.

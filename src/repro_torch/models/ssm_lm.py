@@ -1,9 +1,10 @@
 """Pure-SSM language model (mamba2-130m family): attention-free.
 
 Per-layer parameters keep the JAX package's stacked layout; the
-reference's ``jax.lax.scan`` over layers is a Python loop over per-layer
-views.  Its ``jax.checkpoint`` (``cfg.remat``) trades memory in a
-backward pass and has nothing to do in this forward-only port.
+reference's ``jax.lax.scan`` over layers is
+:func:`repro_torch.core.psg.scan` over per-layer views, with each block
+checkpointed under ``cfg.remat`` (except where the states are
+collected, as in the reference).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.psg import scan
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (
     chunked_cross_entropy,
@@ -21,7 +23,8 @@ from repro_torch.models.layers import (
     rms_norm,
 )
 from repro_torch.models.params import P, Specs
-from repro_torch.models.transformer import layer_params, stack_specs
+from repro_torch.models.transformer import (layer_params, stack_specs,
+                                           unbind_layers)
 
 
 def ssm_lm_specs(cfg: ArchConfig) -> Specs:
@@ -41,17 +44,16 @@ def _backbone(cfg: ArchConfig, params: Dict[str, Any], x: torch.Tensor,
     """All layers over x: (B, S, D); final-normed.  With
     ``collect_state`` also the per-layer (conv, h) states stacked into the
     reference's (L, ...) layout, else None."""
-    convs, hs = [], []
-    for i in range(cfg.n_layers):
-        p = layer_params(params["layers"], i)
-        y, (conv_s, h) = mamba2.ssd_block_train(
+    def body(x, p):
+        y, st = mamba2.ssd_block_train(
             cfg, p["ssd"], rms_norm(x, p["norm"], cfg.norm_eps),
             return_state=True)
-        x = x + y
-        if collect_state:
-            convs.append(conv_s)
-            hs.append(h)
-    states = (torch.stack(convs), torch.stack(hs)) if collect_state else None
+        return x + y, st if collect_state else None
+
+    x, sts = scan(body, x, unbind_layers(params["layers"], cfg.n_layers),
+                  name="layers", remat=cfg.remat and not collect_state)
+    states = (torch.stack([c for c, _ in sts]),
+              torch.stack([h for _, h in sts])) if collect_state else None
     return rms_norm(x, params["final_norm"], cfg.norm_eps), states
 
 

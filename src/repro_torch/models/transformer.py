@@ -1,20 +1,22 @@
 """Decoder-only transformer LM, dense family.
 
 Per-layer parameters keep the JAX package's stacked layout (every block
-leaf carries a leading ``n_layers`` axis); the layer loop is a Python
-loop over per-layer views of them.  ``cfg.remat`` has no effect on a
-forward and is wired with the train step (ROADMAP next 1).  The MoE and
-VLM branches of the JAX module come with their families (ROADMAP Slice
-C) and raise here.
+leaf carries a leading ``n_layers`` axis).  The training layer loop is
+:func:`repro_torch.core.psg.scan` over the layers' views of them, with
+each block checkpointed under ``cfg.remat`` as the reference's
+``jax.checkpoint``; serving loops over the layers in Python.  The MoE
+and VLM branches of the JAX module come with their families (ROADMAP
+Queue 1 item 8 for moe, item 9 for vlm) and raise here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.psg import scan
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     chunked_cross_entropy,
@@ -31,8 +33,8 @@ from repro_torch.models.params import P, Specs
 def _dense_only(cfg: ArchConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"the {cfg.family!r} block is not ported yet (ROADMAP Slice C, "
-            "item 11 for moe, item 13 for vlm)")
+            f"the {cfg.family!r} block is not ported yet (ROADMAP Queue 1, "
+            "item 8 for moe, item 9 for vlm)")
 
 
 def stack_specs(specs: Specs, n: int) -> Specs:
@@ -70,6 +72,14 @@ def layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
             for k, v in layers.items()}
 
 
+def unbind_layers(layers: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """Every layer's parameters at once: one ``unbind`` of each stacked
+    leaf, whose gradient is one ``stack`` (not a scatter per layer)."""
+    cols = {k: unbind_layers(v, n) if isinstance(v, dict) else v.unbind(0)
+            for k, v in layers.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Training forward
 # ---------------------------------------------------------------------------
@@ -86,8 +96,9 @@ def backbone_train(cfg: ArchConfig, params: Dict[str, Any],
                    x: torch.Tensor) -> torch.Tensor:
     """Run all blocks over embedded input x: (B, S, D); final-normed."""
     _dense_only(cfg)
-    for i in range(cfg.n_layers):
-        x = _block_train(cfg, x, layer_params(params["layers"], i))
+    x, _ = scan(lambda h, p: (_block_train(cfg, h, p), None), x,
+                unbind_layers(params["layers"], cfg.n_layers), name="layers",
+                remat=cfg.remat)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -414,3 +414,52 @@ def test_smoke_model_loss_through_the_kernels(card, arch):
             fk.flash_attention.launches - before[1]) == (cfg.n_layers, sites)
     want = float(plain.train_loss(params, {"tokens": toks})[0])
     assert np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m",
+                                  "zamba2-2.7b"])
+def test_smoke_train_step_on_the_card_equals_the_cpu(card, arch):
+    """One smoke train step on the card, eager and profiled (the traced
+    graph through the fenced interpreter), equals the CPU's step on the
+    same weights and tokens: metrics within 1e-5 relative; the profiled
+    step's new params equal the eager card step's within 1e-5."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.profiler import GraphProfiler
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init, constant
+    from repro_torch.optim.tree import leaves, tree_map
+    from repro_torch.training import TrainState, make_train_step
+    cfg = get_smoke(arch)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (4, 65)))
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(cpu.generator(0))
+    runs = {}
+    for dev in ("cpu", card):
+        p = tree_map(lambda t: t.to(dev), params)
+        state = TrainState(p, adamw_init(p), None,
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        step = make_train_step(build_model(cfg, device=dev), RunConfig(),
+                               constant(1e-3))
+        batch = {"tokens": toks.to(dev)}
+        runs[str(dev)] = step(state, batch)
+        if dev == card:
+            prof = GraphProfiler(step, (state, batch), sample_every=1)
+            runs["profiled"] = prof.step(state, batch)
+            assert prof.sampled_steps == 1
+            tops = prof.psg.children(prof.psg.root)
+            perf = prof.perf_vectors()
+            assert all(perf[v].samples == 1 and perf[v].time >= 0
+                       for v in tops)
+    want = runs["cpu"][1]
+    for name in ("cuda", "profiled"):
+        got = runs[name][1]
+        for k in ("loss", "grad_norm", "param_norm", "lr"):
+            np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                       rtol=1e-5, err_msg=f"{name} {k}")
+    for a, b in zip(leaves(runs["profiled"][0].params),
+                    leaves(runs["cuda"][0].params)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)

@@ -60,7 +60,12 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core",
            "repro_torch.models.hybrid", "repro_torch.kernels.ssd_scan",
            "repro_torch.kernels.ssd_scan.kernel",
            "repro_torch.kernels.ssd_scan.ops",
-           "repro_torch.kernels.ssd_scan.ref"]
+           "repro_torch.kernels.ssd_scan.ref", "repro_torch.optim",
+           "repro_torch.optim.tree", "repro_torch.optim.schedule",
+           "repro_torch.optim.adamw", "repro_torch.optim.compress",
+           "repro_torch.training", "repro_torch.training.trainer",
+           "repro_torch.core.contraction", "repro_torch.core.costs",
+           "repro_torch.core.psg", "repro_torch.core.profiler"]
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():
@@ -114,6 +119,24 @@ def test_model_entry_points_run_with_jax_and_repro_blocked():
     """)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_train_step_example_runs_with_jax_and_repro_blocked():
+    # the torch example end to end: a traced, profiled train step, the
+    # replay, the detect and the backtrack, with the JAX package refused
+    example = os.path.join(os.path.dirname(__file__), "..", "examples",
+                           "diagnose_scaling_loss_torch.py")
+    out = _run(f"""
+        import runpy
+        sys.argv = ["diagnose_scaling_loss_torch.py", "--device", "cpu"]
+        try:
+            runpy.run_path({os.path.abspath(example)!r}, run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        assert "jax" not in sys.modules
+    """)
+    assert out.returncode == 0, out.stderr
+    assert "root cause recovered: True" in out.stdout
 
 
 def test_importing_the_port_builds_nothing():
