@@ -59,13 +59,33 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    a 64-process replay with +500 ms at process 17 of the first loop,
    ``detect_abnormal`` on the card (one ``ab_fused`` launch) equal to
    numpy's, and the backtrack to the injected root cause; then one
-   mamba2-130m train step at (8, 2049) whose loss equals ``train_loss``.
+   mamba2-130m train step at (8, 2049) whose loss equals ``train_loss``;
+8. monitor — the always-on ``Monitor`` at 65536 processes over 8 hosts,
+   every detect through ``ab_fused`` on the card: three ``chaos_run``s
+   under the reference chaos smoke's faults (clean, one dead host, an
+   aggregator crash after round 2 and a restore from a snapshot), each
+   report, abnormal list and path equal to the numpy backend's run; then
+   a Monitor on the card and a numpy one fed the same deltas: steady
+   cycles in which one host rewrites 16 rows (exactly 16 rows uploaded,
+   one ``abnormal`` launch, the report equal to numpy's; poll-to-report
+   latency, median of 5, and one cycle under the profiler), a degraded
+   cycle with one host stale (the live-row gather of the same kernel),
+   one detect on the daemon thread of ``start()``, and a restore whose
+   first detect re-pins every row;
+9. runs — ``tools_torch/run_store_smoke_torch.py`` with
+   ``diff_runs(backend="torch", device="cuda")``: the amdahl scenario at
+   512 processes (precision >= 0.8, a clean-vs-clean diff quiet) and a
+   65536-process fleet recorded with ``cluster=64`` (>= 100x, the
+   regressed cluster holding every culprit), each equal to the numpy
+   backend's diff, with the record, cluster, diff and ``fit_slopes``
+   times; then the converged Monitor of phase 8 archived into a
+   ``RunStore`` and loaded back equal.
 
 The detection kernels' launch counts are reset just before phase 3 and
-read just after phase 4, and again just before phase 7's detect and
-just after it (the JSON line's ``ab_fused`` count is the sum); the
-kernels' counts of each model path just before its first loss and just
-after its serving run.  It exits non-zero, printing no
+read just after phase 4, again just before phase 7's detect and just
+after it, and again just before phase 8 and just after it (the JSON
+line's ``ab_fused`` count is the sum); the kernels' counts of each model
+path just before its first loss and just after its serving run.  It exits non-zero, printing no
 result, when any check fails, when there is no CUDA card, or when the
 port is not next to it.  The last line is ``{"ok": true, "device":
 {...}}``.
@@ -1192,6 +1212,233 @@ def phase_diagnose(card: str) -> int:
     torch.cuda.empty_cache()
     return launches
 
+# -- phase 8: the always-on Monitor at fleet scale ------------------------
+
+MON_PROCS, MON_HOSTS, MON_ROWS = 65536, 8, 16
+CHAOS_RUNS = [("clean", dict(seed=0)),
+              ("one dead host", dict(seed=1, dead_hosts=(2,))),
+              ("crash after round 2 + restore",
+               dict(seed=2, crash_after_round=2))]
+
+
+def phase_monitor(card: str):
+    """[monitor]: the port's always-on Monitor at 65536 processes over 8
+    hosts, every detect on the card.  Three ``chaos_run``s under the
+    reference smoke's faults (clean, one dead host, a crash and a restore
+    from a snapshot), each equal to the numpy backend's run; then a pair
+    of Monitors (card, numpy) fed the same deltas: steady cycles that
+    rewrite 16 rows of one host (exactly 16 rows uploaded, one
+    ``abnormal`` launch), one under the profiler, a degraded cycle (one
+    host stale: the live-row gather), one detect on the daemon thread of
+    ``start()``, and a restore whose first detect re-pins every row.
+    Returns the card's Monitor (converged) for ``[runs]``."""
+    import tempfile
+    import threading
+    import numpy as np
+    from repro_torch.core.inject import simulate
+    from repro_torch.core.shard import ShardedStore, shard_ranges
+    from repro_torch.kernels.detect_fused import kernel, ops
+    from repro_torch.monitor import (Monitor, QueueTransport, ShardProducer,
+                                     build_chaos_psg, chaos_run)
+    sys.path.insert(0, str(ROOT))
+    # the reference chaos smoke's fault mix, what must agree, and a
+    # transport feeding two Monitors
+    from tools_torch.chaos_smoke_torch import FAULTS, Tee, report_key
+
+    for name, kw in CHAOS_RUNS:
+        res, secs = {}, {}
+        for backend, dev in (("torch", "cuda"), ("numpy", None)):
+            with tempfile.TemporaryDirectory() as d:
+                snap = {"snapshot_dir": d} if "crash_after_round" in kw \
+                    else {}
+                t0 = time.perf_counter()
+                res[backend] = chaos_run(
+                    n_procs=MON_PROCS, n_hosts=MON_HOSTS, backend=backend,
+                    device=dev, **FAULTS, **kw, **snap)
+                secs[backend] = time.perf_counter() - t0
+        got = res["torch"]
+        check(got.converged, f"monitor chaos {name}: did not converge "
+              f"(abnormal {got.abnormal_match}, paths {got.paths_match})")
+        check(report_key(got.report) == report_key(res["numpy"].report),
+              f"monitor chaos {name}: report differs from numpy")
+        check(got.report.degraded == ("dead_hosts" in kw),
+              f"monitor chaos {name}: degraded {got.report.degraded}")
+        print(f"  chaos {name}: converged = numpy; {got.deltas_applied} "
+              f"deltas applied, {got.duplicates_absorbed} duplicates "
+              f"absorbed, {len(got.report.abnormal)} abnormal; "
+              f"{got.report.coverage}; {secs['torch']:.2f} s (numpy "
+              f"{secs['numpy']:.2f} s, host clock)")
+
+    # -- a pair of Monitors fed the same deltas ----------------------------
+    psg = build_chaos_psg()
+    V = len(psg.vertices)
+    ranges = shard_ranges(MON_PROCS, MON_HOSTS)
+    rng = np.random.default_rng(0)
+    straggler = int(rng.integers(MON_PROCS))
+    slow_vid = int(rng.integers(1, V - 1))
+    truth = simulate(psg, MON_PROCS,
+                     lambda p, v: 0.0 if psg.vertices[v].kind == "Comm"
+                     else 1.0 + 0.01 * v,
+                     inject={(straggler, slow_vid): 4.0},
+                     comm_time=lambda *a: 0.05, jitter=0.0, seed=0,
+                     shards=ranges).ppg
+    now = [0.0]
+    clock = lambda: now[0]                                # noqa: E731
+    snapdir = tempfile.TemporaryDirectory()
+    q_card, q_host = QueueTransport(), QueueTransport()
+    kw = dict(comm=truth.comm, detect_every=1, stale_after=2.5, clock=clock)
+    # snapshots only when asked for (the restore below), so that no
+    # cycle's time includes a periodic snapshot
+    mon = Monitor(psg, ranges, q_card, backend="torch", device="cuda",
+                  snapshot_dir=snapdir.name, snapshot_every=1 << 30, **kw)
+    ref = Monitor(psg, ranges, q_host, backend="numpy", **kw)
+    prod = ShardedStore(ranges, V)
+    producers = [ShardProducer(h, prod.shards[h], Tee(q_card, q_host),
+                               clock=clock, sleep=lambda s: None)
+                 for h in range(MON_HOSTS)]
+    for h, p in enumerate(producers):
+        sh = prod.shards[h]
+        sh.apply_rows(truth.perf.shards[h].extract_rows(
+            np.arange(sh.n_procs)))
+        p.flush()
+    first = mon.poll()
+    check(first is not None and report_key(first)
+          == report_key(ref.poll()), "monitor: first detect differs")
+    view = mon.ppg.device_view(mon.device)
+    check((view.full_uploads, view.last_upload_rows) == (1, MON_PROCS),
+          f"monitor: first detect uploaded {view.last_upload_rows} rows in "
+          f"{view.full_uploads} full uploads")
+
+    def rewrite(h: int, stall: float) -> None:
+        sh = prod.shards[h]
+        rows = np.sort(rng.choice(sh.n_procs, MON_ROWS, replace=False))
+        sh.set_entries(rows, slow_vid, stall)
+        producers[h].flush()
+
+    def cycle(tag: str, h: int, stall: float, degraded: bool = False):
+        rewrite(h, stall)
+        ops.reset_launch_counts()
+        before = kernel.ab_fused.launches
+        t0 = time.perf_counter()
+        rep = mon.poll()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(rep is not None, f"monitor {tag}: poll produced no report")
+        check(view.last_upload_rows == MON_ROWS,
+              f"monitor {tag}: uploaded {view.last_upload_rows} rows")
+        check(dict(ops.launch_counts) == {"abnormal": 1}
+              and kernel.ab_fused.launches == before + 1,
+              f"monitor {tag}: launches {dict(ops.launch_counts)}, "
+              f"ab_fused {kernel.ab_fused.launches - before}")
+        check(rep.degraded == degraded,
+              f"monitor {tag}: degraded {rep.degraded}")
+        check(report_key(rep) == report_key(ref.poll()),
+              f"monitor {tag}: report differs from numpy's")
+        return ms
+
+    cycles = [cycle("steady cycle", i % MON_HOSTS, 5.0 + i)
+              for i in range(6)][1:]
+    print(f"  steady cycle: host h rewrites {MON_ROWS} rows and flushes, "
+          f"poll() detects: {MON_ROWS} rows uploaded, launches "
+          f"{{'abnormal': 1}}, report = numpy's; poll to report "
+          f"{statistics.median(cycles):.3f} ms (median of 5, host clock; "
+          f"{', '.join(f'{c:.3f}' for c in cycles)})  [{card}]")
+    rewrite(6, 11.5)
+    rep = profile_cycle(mon.poll, what="Monitor steady cycle (poll)")
+    check(rep is not None and report_key(rep) == report_key(ref.poll()),
+          "monitor: profiled cycle differs from numpy's")
+
+    # one host stale: the live-row gather of the same kernel
+    now[0] += 5.0
+    for h, p in enumerate(producers):
+        if h != 3:
+            p.send_heartbeat()
+    ms = cycle("degraded cycle", 0, 12.5, degraded=True)
+    print(f"  degraded cycle (h3 stale, {MON_PROCS - MON_PROCS // MON_HOSTS}"
+          f" live rows gathered on the card): = numpy's, one abnormal "
+          f"launch, {ms:.3f} ms  [{card}]")
+    producers[3].send_heartbeat()
+
+    # one detect on the daemon thread
+    done, errors = threading.Event(), []
+    hook = threading.excepthook
+    threading.excepthook = errors.append
+    mon.on_report = lambda r: done.set()
+    ops.reset_launch_counts()
+    mon.start(poll_interval=0.005)
+    try:
+        rewrite(1, 13.5)
+        streamed = done.wait(timeout=120)
+    finally:
+        mon.stop()
+        threading.excepthook = hook
+        mon.on_report = None
+    check(not errors, f"monitor thread raised: {errors and errors[0]}")
+    check(streamed, "monitor thread produced no report")
+    check(dict(ops.launch_counts) == {"abnormal": 1},
+          f"monitor thread launches {dict(ops.launch_counts)}")
+    check(report_key(mon.reports[-1]) == report_key(ref.poll()),
+          "monitor thread: report differs from numpy's")
+    print("  start()/stop(): one detect on the daemon thread, one abnormal "
+          "launch, report = numpy's")
+
+    # crash + restore: the first detect re-pins every row
+    mon.snapshot()
+    back = Monitor.restore(psg, QueueTransport(), snapdir.name,
+                           backend="torch", device="cuda", **kw)
+    rep = back.force_detect()
+    again = back.ppg.device_view(back.device)
+    check((again.full_uploads, again.last_upload_rows) == (1, MON_PROCS),
+          f"monitor restore: {again.last_upload_rows} rows in "
+          f"{again.full_uploads} full uploads")
+    check(report_key(rep) == report_key(ref.force_detect()),
+          "monitor restore: report differs from numpy's")
+    print(f"  restore from a snapshot: the first detect re-pins all "
+          f"{MON_PROCS} rows (one full upload), report = numpy's")
+    snapdir.cleanup()
+    return mon
+
+
+# -- phase 9: the run store -------------------------------------------------
+
+def phase_runs(card: str, mon) -> None:
+    """[runs]: ``tools_torch/run_store_smoke_torch.py`` on the card (part
+    A: the amdahl scenario at 512 processes; part B: a 65536-process
+    fleet recorded with ``cluster=64``), each diff equal to the numpy
+    backend's; then the converged Monitor of ``[monitor]`` archived into
+    a ``RunStore`` and loaded back equal."""
+    import tempfile
+    import numpy as np
+    sys.path.insert(0, str(ROOT))
+    from tools_torch import run_store_smoke_torch as rs
+    from repro_torch.runs import RunStore
+
+    a = rs.part_a("cuda")
+    print(f"  {a['line']}  [{card}]")
+    check(a["ok"], "runs: part A failed")
+    b = rs.part_b("cuda")
+    print(f"  {b['line']}  [{card}]")
+    check(b["ok"], "runs: part B failed")
+    last = mon.reports[-1]
+    with tempfile.TemporaryDirectory() as d:
+        store = RunStore(d)
+        t0 = time.perf_counter()
+        rec = store.load(mon.archive_to(store, meta={"label": "monitor"}))
+        secs = time.perf_counter() - t0
+    V = len(mon.psg.vertices)
+    check(rec.scale == MON_PROCS and rec.meta["label"] == "monitor",
+          f"runs: archived scale {rec.scale}, meta {rec.meta}")
+    check(np.array_equal(np.asarray(rec.ppg.times_matrix()),
+                         np.asarray(mon.store.time_matrix(V))),
+          "runs: the archived fleet's times differ from the Monitor's")
+    check(rec.psg.to_json() == mon.psg.to_json(),
+          "runs: the archived PSG differs")
+    check([(x.vid, x.proc, x.time, x.typical) for x in rec.detect["abnormal"]]
+          == [(x.vid, x.proc, x.time, x.typical) for x in last.abnormal],
+          "runs: the archived abnormal list differs from the report's")
+    print(f"  Monitor.archive_to: {MON_PROCS} procs recorded and loaded "
+          f"back equal (times, PSG, {len(last.abnormal)} abnormal) in "
+          f"{secs:.2f} s")
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -1302,11 +1549,29 @@ def main() -> int:
         launches["ab_fused"] += phase_diagnose(card)
         print(f"[diagnose] phase wall time "
               f"{time.perf_counter() - t_diag:.1f} s  [{card}]")
+        t_mon = time.perf_counter()
+        print(f"[monitor] the always-on Monitor at {MON_PROCS} procs over "
+              f"{MON_HOSTS} hosts, every detect on the card; {card}")
+        kernel.reset_launches()
+        mon = phase_monitor(card)
+        mon_launches = (kernel.ab_fused.launches, kernel.ns_fused.launches)
+        check(mon_launches[0] > 0 and mon_launches[1] == 0,
+              f"monitor launches: ab_fused {mon_launches[0]}, "
+              f"ns_fused {mon_launches[1]}")
+        launches["ab_fused"] += mon_launches[0]
+        print(f"[monitor] ab_fused launches {mon_launches[0]}; phase wall "
+              f"time {time.perf_counter() - t_mon:.1f} s  [{card}]")
+        t_runs = time.perf_counter()
+        print(f"[runs] the run store: diff_runs(backend='torch', "
+              f"device='cuda'); {card}")
+        phase_runs(card, mon)
+        print(f"[runs] phase wall time {time.perf_counter() - t_runs:.1f} s"
+              f"  [{card}]")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    replaces = {"ab_fused": "src/repro/kernels/detect_fused/kernel.py:399",
-                "ns_fused": "src/repro/kernels/detect_fused/kernel.py:227",
+    replaces = {"ab_fused": "src/repro/kernels/detect_fused/kernel.py:400",
+                "ns_fused": "src/repro/kernels/detect_fused/kernel.py:228",
                 "flash_attention":
                     "src/repro/kernels/flash_attention/kernel.py:96",
                 "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:81"}

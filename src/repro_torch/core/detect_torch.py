@@ -9,9 +9,12 @@ The twin of the JAX package's ``detect_jax`` entry points that
   from :class:`~repro_torch.core.shard.TorchShardView`\\ s (a
   ``ShardedStore``-backed PPG: the online path), where only dirty rows
   upload per call and completed scales' merged columns stay cached on
-  the device.
+  the device;
+* :func:`fit_slopes` — the batched log-log slope fit the cross-run diff
+  (:mod:`repro_torch.runs.diff`) runs per recorded run, as plain torch
+  ops on the device (the JAX twin is jitted ``jnp``, not a kernel).
 
-Every entry point runs ONE fused op per detector
+Every detection entry point runs ONE fused op per detector
 (:mod:`repro_torch.kernels.detect_fused.ops`): the hand-written CUDA
 kernels for tensors on a card, their plain torch versions on the CPU.
 Only (V,)-sized results and the <= k winners come back to the host.
@@ -183,3 +186,31 @@ def non_scalable_views(scales: Sequence[int], views: Sequence[TorchShardView],
         ideal_slope=float(ideal_slope), slope_margin=float(slope_margin),
         min_share=float(min_share))
     return _host(M[si], slope[si], share[si], flagged[si])
+
+
+def fit_slopes(scales: Sequence[int], M: np.ndarray, valid: np.ndarray,
+               device=None) -> np.ndarray:
+    """Batched least-squares slope of log t vs log p per column, on
+    ``device``: (S, V) merged times -> (V,) host slopes.
+
+    The torch twin of ``detect.fit_slopes`` (same formulas, same clamp to
+    0.0 for columns with fewer than 2 valid points or a zero
+    denominator), in the precision of :func:`_precision`.  ``valid`` is
+    the (S, V) mask of usable points."""
+    tdt, ndt = _precision()
+    dev = TorchShardView.resolve_device(device)
+    x = _put(np.log(np.asarray(scales, ndt)), ndt, dev)[:, None]  # (S, 1)
+    m = _put(M, ndt, dev)
+    ok = _put(valid, bool, dev)
+    Y = torch.where(ok, torch.log(torch.where(ok, m, 1.0)), 0.0)
+    w = ok.to(tdt)
+    n = w.sum(0)
+    Sx = (x * w).sum(0)
+    Sy = Y.sum(0)
+    Sxx = (x * x * w).sum(0)
+    Sxy = (x * Y).sum(0)
+    denom = n * Sxx - Sx ** 2
+    num = n * Sxy - Sx * Sy
+    nonzero = denom != 0
+    slope = torch.where(nonzero, num / torch.where(nonzero, denom, 1.0), 0.0)
+    return torch.where(n >= 2, slope, 0.0).cpu().numpy()

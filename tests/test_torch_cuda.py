@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.detect_fused import ops, ref
+from tools_torch.chaos_smoke_torch import Tee, report_key
 
 ARGS = dict(ideal_slope=0.0, slope_margin=0.05, min_share=0.01)
 
@@ -463,3 +464,62 @@ def test_smoke_train_step_on_the_card_equals_the_cpu(card, arch):
                     leaves(runs["cuda"][0].params)):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dead", [(), (3,)], ids=["full", "dead-host"])
+def test_monitor_chaos_run_on_the_card_equals_numpy(card, dead, monkeypatch):
+    # 1027 procs over 8 hosts: uneven shards, an odd live count (899) with
+    # h3 dead
+    from repro_torch.kernels.detect_fused import kernel
+    from repro_torch.monitor import chaos_run
+    kw = dict(n_procs=1027, n_hosts=8, seed=3, dead_hosts=dead,
+              p_drop=0.25, p_dup=0.2, p_delay=0.35, p_ack_loss=0.15)
+    launches = []
+    monkeypatch.setattr(ops, "on_launch", launches.append)
+    before = kernel.ab_fused.launches
+    got = chaos_run(backend="torch", device="cuda", **kw)
+    monkeypatch.setattr(ops, "on_launch", None)
+    want = chaos_run(backend="numpy", **kw)
+    assert got.converged and report_key(got.report) \
+        == report_key(want.report)
+    assert got.report.degraded == bool(dead)
+    # one abnormal launch per detect: the one-shot reference's, and one
+    # for each of the Monitor's reports (indices 0..index)
+    assert launches == ["abnormal"] * (got.report.index + 2)
+    assert kernel.ab_fused.launches - before == len(launches)
+
+
+@pytest.mark.cuda
+def test_monitor_steady_cycle_on_the_card(card):
+    from repro_torch.core.inject import simulate
+    from repro_torch.core.shard import ShardedStore, shard_ranges
+    from repro_torch.monitor import (Monitor, QueueTransport, ShardProducer,
+                                     build_chaos_psg)
+    psg = build_chaos_psg()
+    ranges = shard_ranges(4096, 8)
+    truth = simulate(psg, 4096, lambda p, v: 0.0 if v == 13 else 1.0 + v,
+                     inject={(77, 4): 4.0}, comm_time=lambda *a: 0.05,
+                     jitter=0.0, shards=ranges).ppg
+    qs = [QueueTransport(), QueueTransport()]
+    mon = Monitor(psg, ranges, qs[0], comm=truth.comm, detect_every=1)
+    assert mon.device.type == "cuda"          # the default is the card
+    ref = Monitor(psg, ranges, qs[1], comm=truth.comm, detect_every=1,
+                  backend="numpy")
+    prod = ShardedStore(ranges, len(psg.vertices))
+    producers = [ShardProducer(h, prod.shards[h], Tee(*qs),
+                               sleep=lambda s: None) for h in range(8)]
+    for h, p in enumerate(producers):
+        prod.shards[h].apply_rows(truth.perf.shards[h].extract_rows(
+            np.arange(512)))
+        p.flush(heartbeat=False)
+    assert report_key(mon.poll()) == report_key(ref.poll())
+    view = mon.ppg.device_view(mon.device)
+    for h in (0, 5):
+        prod.shards[h].set_entries(np.arange(100, 116), 6, 9.0 + h)
+        producers[h].flush(heartbeat=False)
+        ops.reset_launch_counts()
+        rep = mon.poll()
+        assert view.last_upload_rows == 16
+        assert dict(ops.launch_counts) == {"abnormal": 1}
+        assert report_key(rep) == report_key(ref.poll())

@@ -65,7 +65,16 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core",
            "repro_torch.optim.adamw", "repro_torch.optim.compress",
            "repro_torch.training", "repro_torch.training.trainer",
            "repro_torch.core.contraction", "repro_torch.core.costs",
-           "repro_torch.core.psg", "repro_torch.core.profiler"]
+           "repro_torch.core.psg", "repro_torch.core.profiler",
+           "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+           "repro_torch.monitor", "repro_torch.monitor.validate",
+           "repro_torch.monitor.clock", "repro_torch.monitor.transport",
+           "repro_torch.monitor.producer", "repro_torch.monitor.degraded",
+           "repro_torch.monitor.aggregator", "repro_torch.monitor.wire",
+           "repro_torch.monitor.net", "repro_torch.monitor.chaos",
+           "repro_torch.runs", "repro_torch.runs.store",
+           "repro_torch.runs.align", "repro_torch.runs.cluster",
+           "repro_torch.runs.diff", "repro_torch.runs.report"]
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():
@@ -203,3 +212,46 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ssd.ssd_scan(x, torch.zeros(1, 64, 2), -torch.ones(2), bc, bc,
                      chunk=64)
     assert ssd.ssd_scan.launches == 0
+
+
+def test_monitor_and_diff_without_device_mean_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import numpy as np
+    from repro_torch.core.detect_torch import fit_slopes
+    from repro_torch.monitor import (Monitor, QueueTransport,
+                                     build_chaos_psg, chaos_run,
+                                     socket_chaos_run)
+    psg = build_chaos_psg(4)
+    for kw in ({}, {"backend": "torch"}, {"backend": None}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Monitor(psg, [(0, 4), (4, 8)], QueueTransport(), **kw)
+        # the chaos harnesses detect where the Monitor does
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            chaos_run(n_procs=16, n_hosts=2, **kw)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            socket_chaos_run(n_procs=16, n_hosts=2, **kw)
+    with pytest.raises(ValueError, match="unknown detect backend"):
+        Monitor(psg, [(0, 4)], QueueTransport(), backend="jax")
+    # the CPU is asked for, either way
+    assert Monitor(psg, [(0, 4)], QueueTransport(),
+                   device="cpu").device == torch.device("cpu")
+    assert Monitor(psg, [(0, 4)], QueueTransport(),
+                   backend="numpy").backend == "numpy"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit_slopes([8, 16], np.ones((2, 3)), np.ones((2, 3), bool))
+
+
+def test_monitor_chaos_runs_with_jax_and_repro_blocked():
+    out = _run("""
+        import tempfile
+        from repro_torch.monitor import chaos_run
+        with tempfile.TemporaryDirectory() as d:
+            r = chaos_run(n_procs=32, n_hosts=4, seed=1, dead_hosts=(2,),
+                          snapshot_dir=d, crash_after_round=2,
+                          backend="torch", device="cpu")
+        assert r.converged and r.report.degraded
+        print("ok")
+    """)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
