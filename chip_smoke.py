@@ -79,13 +79,33 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    regressed cluster holding every culprit), each equal to the numpy
    backend's diff, with the record, cluster, diff and ``fit_slopes``
    times; then the converged Monitor of phase 8 archived into a
-   ``RunStore`` and loaded back equal.
+   ``RunStore`` and loaded back equal;
+10. moe — the flash kernel at the MoE layers (h = 128: moonshot's MHA
+   (2, 16/16, 2048) and dbrx's GQA (1, 48/8, 2048)) against its plain
+   version, with its time, the plain version's, SDPA's and its bound;
+   then moonshot-v1-16b-a3b (16 of 48 layers) and dbrx-132b (2 of 40)
+   at their published widths, random f32 weights from a seed: the loss
+   through the kernel against the einsum path (one flash launch a layer)
+   and against the sort dispatch, and for moonshot two 128-token prompts
+   prefilled and greedy-decoded for 16 tokens, twice, with the decode
+   step's time beside its floor (every expert's weights read a step);
+11. serve — ``ServingEngine`` at full width: tinyllama-1.1b, mamba2-130m,
+   zamba2-2.7b and moonshot-v1-16b-a3b (16 layers) serve seeded prompts
+   of 16-64 tokens with continuous batching, greedy and sampled; every
+   request completes, uid 0 alone equals its batched stream, a second
+   engine gives every stream again; tokens/s, latency, the decode step's
+   time, the smallest greedy top-2 gap, and one decode step of tinyllama
+   and of moonshot under the profiler.
 
 The detection kernels' launch counts are reset just before phase 3 and
 read just after phase 4, again just before phase 7's detect and just
 after it, and again just before phase 8 and just after it (the JSON
 line's ``ab_fused`` count is the sum); the kernels' counts of each model
-path just before its first loss and just after its serving run.  It exits non-zero, printing no
+path just before its first loss and just after its serving run; the
+flash count just before phase 10's models and just after (added to the
+JSON line's), and every count just before phase 11 and just after (the
+engine reaches no kernel, and the phase fails if one is launched).
+It exits non-zero, printing no
 result, when any check fails, when there is no CUDA card, or when the
 port is not next to it.  The last line is ``{"ok": true, "device":
 {...}}``.
@@ -154,6 +174,23 @@ FLASH_ZAMBA = (2, 32, 32, 2048, 2048, 80, True)
 # to their max |h|: the per-layer differences above, carried through 24
 # layers of the residual stream
 STATE_TOL = 1e-3
+# [moe]: (arch, layers kept of the published depth, loss tokens); every
+# width is the published one, the depth is cut to fit one 80 GB card
+MOE_MODELS = [("moonshot-v1-16b-a3b", 16, (2, 2049)),
+              ("dbrx-132b", 2, (1, 2049))]
+MOE_SORT_TOL = 5e-3             # einsum vs sort (tests/test_models_smoke.py)
+MOE_DECODE = 16                 # greedy tokens after a 2 x 128 prefill
+# the flash kernel at the MoE layers (h = 128): moonshot's MHA, dbrx's GQA
+FLASH_MOE = [(2, 16, 16, 2048, 2048, 128, True),
+             (1, 48, 8, 2048, 2048, 128, True)]
+# [serve]: (arch, layers kept or None, slots, requests, new tokens)
+SERVE = [("tinyllama-1.1b", None, 4, 8, 32),
+         ("mamba2-130m", None, 4, 8, 32),
+         ("zamba2-2.7b", None, 2, 4, 16),
+         ("moonshot-v1-16b-a3b", 16, 4, 6, 16)]
+SERVE_MAX_SEQ = 256
+SERVE_PROMPTS = (16, 64)        # prompt lengths drawn in [16, 64]
+SERVE_PROFILED = ("tinyllama-1.1b", "moonshot-v1-16b-a3b")
 
 
 class SmokeFailure(Exception):
@@ -1440,6 +1477,246 @@ def phase_runs(card: str, mon) -> None:
           f"{secs:.2f} s")
 
 
+# -- phase 10: the MoE family ------------------------------------------------
+
+def phase_flash128(card: str):
+    """The flash kernel at the MoE layers (h = 128, f32) against its plain
+    version within ``FLASH_TOL``; its time, the plain version's, SDPA's and
+    the bound, a line each.  Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    rows = []
+    for case in FLASH_MOE:
+        B, nq, nkv, S, _, h, causal = case
+        scale = h ** -0.5
+        q, k, v = flash_inputs(case + ("float32",), seed=nq)
+        got = kernel.flash_attention(q, k, v, causal=causal,
+                                     softmax_scale=scale)
+        want = ref.attention(q, k, v, causal=causal, softmax_scale=scale)
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        tol = FLASH_TOL["float32"]
+        check(bool((d <= tol + tol * want.abs()).all())
+              and bool(torch.isfinite(got).all()),
+              f"flash {case}: max abs err {d.max().item():.3g}")
+        bound, core = flash_bound(q, k, v, 2 * B * nq * S * S * h)
+        row = dict(
+            case=case, max_abs_err=d.max().item(),
+            ms=cuda_ms(lambda: kernel.flash_attention(
+                q, k, v, causal=causal, softmax_scale=scale)),
+            plain_ms=cuda_ms(lambda: ref.attention(
+                q, k, v, causal=causal, softmax_scale=scale), reps=10),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=scale,
+                enable_gqa=nq != nkv)),
+            bound=bound, core_bound=core)
+        rows.append(row)
+        print(f"  flash_attention {case} f32: {row['ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.4f} ms  bound {bound[0]:.4f} ms "
+              f"({bound[1]}, 3xTF32; CUDA-core f32 {core[0]:.4f} ms)  sdpa "
+              f"{row['library_ms']:.4f} ms  max abs err "
+              f"{row['max_abs_err']:.3g} within {tol}  [{card}]")
+        del q, k, v, got, want, d
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_moe(card: str) -> int:
+    """[moe]: each MoE model at its published widths, cut in depth, random
+    f32 weights from seed 0.  The loss through the flash kernel against
+    the einsum path (within 1e-3, one flash launch a layer) and against
+    the sort dispatch (within ``MOE_SORT_TOL``); for moonshot, two
+    128-token prompts prefilled into a 256-token cache and decoded
+    greedily for ``MOE_DECODE`` tokens, twice.  Returns the flash
+    launches the phase must have made."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.models import build_model
+
+    want = 0
+    for arch, layers, shape in MOE_MODELS:
+        cfg = get(arch).replace(n_layers=layers)
+        plain = build_model(cfg)
+        t0 = time.perf_counter()
+        params = plain.init(plain.generator(0))
+        torch.cuda.synchronize()
+        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        print(f"  {arch} ({layers} of {get(arch).n_layers} layers) init: "
+              f"{plain.param_count()} params, {n_bytes / 1e9:.2f} GB on the "
+              f"card, {time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, shape, dtype=np.int64)).to("cuda")}
+        losses = {}
+        for name, model in (
+                ("kernel", build_model(cfg.replace(use_kernels=True))),
+                ("einsum", plain),
+                ("sort", build_model(cfg, moe_strategy="sort"))):
+            before = flash.flash_attention.launches
+            t0 = time.perf_counter()
+            loss, met = model.train_loss(params, batch)
+            losses[name] = (float(loss), float(met["moe_drop_frac"]),
+                            time.perf_counter() - t0)
+            made = flash.flash_attention.launches - before
+            check(made == (layers if name == "kernel" else 0),
+                  f"{arch} {name} loss: {made} flash launches")
+            check(np.isfinite(losses[name][0]), f"{arch} {name} loss "
+                  f"{losses[name][0]}")
+            del loss, met
+        want += layers
+        lk, l0, ls = (losses[n][0] for n in ("kernel", "einsum", "sort"))
+        check(abs(lk - l0) < 1e-3, f"{arch}: kernel loss {lk!r} vs einsum "
+              f"{l0!r}")
+        check(abs(ls - l0) < MOE_SORT_TOL, f"{arch}: sort loss {ls!r} vs "
+              f"einsum {l0!r}")
+        # moe_drop_frac is summed over the layers, as in the reference
+        print(f"  {arch} train_loss tokens {shape}: " + ", ".join(
+            f"{n} {v[0]!r} (drop {v[1] / layers:.6f} a layer, {v[2]:.3f} s)"
+            for n, v in losses.items())
+            + f"; |kernel - einsum| {abs(lk - l0):.3g}, |sort - einsum| "
+            f"{abs(ls - l0):.3g}; {layers} flash launches (host clock, "
+            f"first calls)  [{card}]")
+        if arch == MOE_MODELS[0][0]:
+            prompts = batch["tokens"][:, :PROMPT].contiguous()
+
+            def serve():
+                steps = []
+                with torch.no_grad():
+                    logits, cache = plain.prefill(params, {"tokens": prompts},
+                                                  MAX_LEN)
+                    out = []
+                    for _ in range(MOE_DECODE):
+                        tok = logits[:, -1].argmax(-1, keepdim=True)
+                        out.append(tok)
+                        t0 = time.perf_counter()
+                        logits, cache = plain.decode_step(params, cache, tok)
+                        torch.cuda.synchronize()
+                        steps.append((time.perf_counter() - t0) * 1e3)
+                check(int(cache.kv.length[0]) == PROMPT + MOE_DECODE,
+                      f"{arch}: cache length")
+                return torch.cat(out, 1), steps
+
+            toks_a, steps = serve()
+            toks_b, _ = serve()
+            check(torch.equal(toks_a, toks_b), f"{arch}: greedy decode is "
+                  "not deterministic")
+            expert = cfg.n_experts * cfg.d_model * cfg.d_ff * 3 * 4 * layers
+            floor = expert / HBM_BYTES_PER_S * 1e3
+            print(f"  {arch} prefill 2 x {PROMPT} into {MAX_LEN}, "
+                  f"{MOE_DECODE} greedy tokens twice: identical; decode step "
+                  f"{statistics.median(steps):.3f} ms (median of "
+                  f"{MOE_DECODE}, host clock), floor {floor:.3f} ms "
+                  f"({expert / 1e9:.1f} GB of expert weights read a step)  "
+                  f"[{card}]")
+        del params, plain, batch
+        torch.cuda.empty_cache()
+    return want
+
+
+# -- phase 11: the serving engine ---------------------------------------------
+
+def phase_serve(card: str) -> None:
+    """[serve]: ``ServingEngine`` at full width on the card for each model
+    of ``SERVE``: seeded prompts of 16-64 tokens, even uids greedy, odd
+    uids at temperature 0.8 with ``seed = uid``.  Every uid completes with
+    its token count; uid 0 alone (one slot) gives its batched stream; a
+    second engine on the same weights gives every uid's tokens and the
+    same number of decode steps; no slot's position passes max_seq - 1.
+    One decode step of each of ``SERVE_PROFILED`` under the profiler."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine
+
+    class Timed(ServingEngine):
+        """The engine, each decode step timed (host clock, synchronised),
+        the smallest top-2 logit gap of its greedy picks and the largest
+        position it decoded at recorded."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.step_ms, self.min_gap, self.max_pos = [], math.inf, 0
+
+        def _step_model(self, tok_batch):
+            self.max_pos = max(self.max_pos, int(self.slot_pos.max()))
+            t0 = time.perf_counter()
+            out = super()._step_model(tok_batch)
+            torch.cuda.synchronize()
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def _sample(self, slot, logits, position):
+            if self.slot_req[slot].temperature <= 0.0:
+                top = np.partition(logits[slot], -2)[-2:]
+                self.min_gap = min(self.min_gap, float(top[1] - top[0]))
+            return super()._sample(slot, logits, position)
+
+    for arch, layers, slots, n_req, new in SERVE:
+        cfg = get(arch)
+        if layers is not None:
+            cfg = cfg.replace(n_layers=layers)
+        model = build_model(cfg)
+        params = model.init(model.generator(0))
+        rng = np.random.default_rng(0)
+        lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1, n_req)
+
+        def requests():
+            prompts = np.random.default_rng(1)
+            return [Request(uid=i, prompt=prompts.integers(
+                        1, cfg.vocab_size, int(lens[i])),
+                        max_new_tokens=new, seed=i,
+                        temperature=0.0 if i % 2 == 0 else 0.8)
+                    for i in range(n_req)]
+
+        runs = []
+        for _ in range(2):
+            eng = Timed(model, params, batch_slots=slots,
+                        max_seq=SERVE_MAX_SEQ)
+            t0 = time.perf_counter()
+            res = eng.run(requests())
+            runs.append((eng, res, time.perf_counter() - t0))
+        (eng, res, wall), (eng_b, res_b, _) = runs
+        check([r.uid for r in res] == list(range(n_req))
+              and all(len(r.tokens) == new for r in res),
+              f"serve {arch}: token counts "
+              f"{[(r.uid, len(r.tokens)) for r in res]}")
+        check([r.tokens for r in res] == [r.tokens for r in res_b],
+              f"serve {arch}: a second engine gave other tokens")
+        check(eng.decode_steps == eng_b.decode_steps,
+              f"serve {arch}: decode steps {eng.decode_steps} vs "
+              f"{eng_b.decode_steps}")
+        check(max(eng.max_pos, eng_b.max_pos) <= SERVE_MAX_SEQ - 1,
+              f"serve {arch}: position {eng.max_pos}")
+        alone = Timed(model, params, batch_slots=1, max_seq=SERVE_MAX_SEQ)
+        solo = alone.run(requests()[:1])[0].tokens
+        check(solo == res[0].tokens, f"serve {arch}: uid 0 alone "
+              f"{solo} vs batched {res[0].tokens}")
+        toks = sum(len(r.tokens) for r in res)
+        lat = [r.latency_s * 1e3 for r in res]
+        gap = min(e.min_gap for e in (eng, eng_b, alone))
+        print(f"  {arch}{'' if layers is None else f' ({layers} layers)'}: "
+              f"{n_req} requests (prompts {lens.tolist()}), {slots} slots, "
+              f"max_seq {SERVE_MAX_SEQ}: {toks} tokens in {wall:.2f} s "
+              f"({toks / wall:.1f} tok/s); latency p50 "
+              f"{np.percentile(lat, 50):.1f} ms, p99 "
+              f"{np.percentile(lat, 99):.1f} ms; {eng.decode_steps} decode "
+              f"steps, median {statistics.median(eng.step_ms):.3f} ms (host "
+              f"clock); uid 0 alone = batched; second engine identical; "
+              f"smallest greedy top-2 gap {gap:.3g} (tie tol 1e-4)  [{card}]")
+        if arch in SERVE_PROFILED:
+            idle = np.zeros((slots, 1), np.int32)
+            profile_cycle(lambda: eng_b._step_model(idle)[0],
+                          f"{arch} decode step ({slots} slots)")
+        del runs, eng, eng_b, alone, model, params
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1567,6 +1844,35 @@ def main() -> int:
         phase_runs(card, mon)
         print(f"[runs] phase wall time {time.perf_counter() - t_runs:.1f} s"
               f"  [{card}]")
+        del mon
+        torch.cuda.empty_cache()
+        t_moe = time.perf_counter()
+        print(f"[moe] the MoE family at full width (depth cut): the flash "
+              f"kernel at h = 128, {', '.join(m[0] for m in MOE_MODELS)}; "
+              f"{card}")
+        phase_flash128(card)
+        flash.flash_attention.launches = 0
+        want = phase_moe(card)
+        got = flash.flash_attention.launches
+        check(got == want, f"moe: flash launches {got}, expected {want}")
+        launches["flash_attention"] += got
+        print(f"[moe] flash launches {got}; phase wall time "
+              f"{time.perf_counter() - t_moe:.1f} s  [{card}]")
+        t_serve = time.perf_counter()
+        print(f"[serve] ServingEngine at full width on the card: "
+              f"{', '.join(m[0] for m in SERVE)}; {card}")
+        kernel.reset_launches()
+        flash.flash_attention.launches = ssd.ssd_scan.launches = 0
+        phase_serve(card)
+        served = {"ab_fused": kernel.ab_fused.launches,
+                  "ns_fused": kernel.ns_fused.launches,
+                  "flash_attention": flash.flash_attention.launches,
+                  "ssd_scan": ssd.ssd_scan.launches}
+        # the engine decodes token by token through decode_step, which
+        # reaches no kernel (the reference's engine reaches no Pallas call)
+        check(not any(served.values()), f"serve: kernel launches {served}")
+        print(f"[serve] kernel launches {served}; phase wall time "
+              f"{time.perf_counter() - t_serve:.1f} s  [{card}]")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

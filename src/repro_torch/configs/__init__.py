@@ -23,12 +23,14 @@ _MODULES: Dict[str, str] = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     "mamba2-130m": "mamba2_130m",
     "zamba2-2.7b": "zamba2_2_7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "dbrx-132b": "dbrx_132b",
 }
 
 ARCHS: List[str] = list(_MODULES)
 PENDING: List[str] = [
     "nemotron-4-15b", "yi-6b", "gemma-7b", "seamless-m4t-medium",
-    "internvl2-2b", "moonshot-v1-16b-a3b", "dbrx-132b",
+    "internvl2-2b",
 ]
 
 

@@ -1,10 +1,10 @@
 """Uniform model API: ``build_model(cfg)`` -> ``ModelBundle``.
 
 The bundle exposes the JAX package's entry points (init, train_loss,
-prefill, decode_step, init_cache) on torch tensors.  The dense, ssm and
-hybrid families are ported; the others raise, naming the ROADMAP item
-that ports them.  Everything runs on ``cuda`` unless ``device="cpu"`` is
-asked for.
+prefill, decode_step, init_cache) on torch tensors.  The dense, moe, ssm
+and hybrid families are ported; the others raise, naming the ROADMAP
+item that ports them.  Everything runs on ``cuda`` unless
+``device="cpu"`` is asked for.
 """
 from __future__ import annotations
 
@@ -20,7 +20,6 @@ from repro_torch.models.params import Specs, init_params, param_count
 
 # families of the JAX package not ported yet -> the ROADMAP item
 PENDING_FAMILIES = {
-    "moe": "ROADMAP Queue 1 item 8",
     "encdec": "ROADMAP Queue 1 item 9",
     "vlm": "ROADMAP Queue 1 item 9",
 }
@@ -47,26 +46,37 @@ class ModelBundle:
 
 
 def build_model(cfg: ArchConfig,
-                device: Optional[torch.device | str] = None) -> ModelBundle:
-    """The bundle of ``cfg``'s family on ``device`` (``cuda`` when None).
-    ``init(generator)`` makes fresh weights on the generator's device."""
+                device: Optional[torch.device | str] = None,
+                moe_strategy: str = "einsum") -> ModelBundle:
+    """The bundle of ``cfg``'s family on ``device`` (``cuda`` when None;
+    raises where CUDA is asked for and there is no card).
+    ``init(generator)`` makes fresh weights on the generator's device.
+    ``moe_strategy`` ("einsum" or "sort") is the MoE family's training
+    dispatch; serving always dispatches by einsum, as in the reference."""
     if cfg.family in PENDING_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet "
             f"({PENDING_FAMILIES[cfg.family]})")
     families = {"dense": (transformer, transformer.lm_specs),
+                "moe": (transformer, transformer.lm_specs),
                 "ssm": (ssm_lm, ssm_lm.ssm_lm_specs),
                 "hybrid": (hybrid, hybrid.hybrid_specs)}
     if cfg.family not in families:
         raise ValueError(f"unknown family {cfg.family!r}")
     module, specs_of = families[cfg.family]
     dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA device; pass device='cpu' "
+                           "to run on the host")
     pdt, cdt = cfg.pdtype(), cfg.cdtype()
     specs = specs_of(cfg)
+    train_loss = functools.partial(module.train_loss, cfg)
+    if module is transformer:
+        train_loss = functools.partial(train_loss, moe_strategy=moe_strategy)
     return ModelBundle(
         cfg=cfg, specs=specs, device=dev,
         init=lambda generator: init_params(specs, generator, pdt),
-        train_loss=functools.partial(module.train_loss, cfg),
+        train_loss=train_loss,
         prefill=functools.partial(module.prefill, cfg),
         decode_step=functools.partial(module.decode_step, cfg),
         init_cache=lambda b, s: module.init_cache(cfg, b, s, cdt, dev),

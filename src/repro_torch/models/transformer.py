@@ -1,12 +1,12 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM, dense and MoE families.
 
 Per-layer parameters keep the JAX package's stacked layout (every block
 leaf carries a leading ``n_layers`` axis).  The training layer loop is
 :func:`repro_torch.core.psg.scan` over the layers' views of them, with
 each block checkpointed under ``cfg.remat`` as the reference's
-``jax.checkpoint``; serving loops over the layers in Python.  The MoE
-and VLM branches of the JAX module come with their families (ROADMAP
-Queue 1 item 8 for moe, item 9 for vlm) and raise here.
+``jax.checkpoint``; serving loops over the layers in Python.  The VLM
+branch of the JAX module comes with its family (ROADMAP Queue 1 item 9)
+and raises here.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.psg import scan
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     chunked_cross_entropy,
     embed_specs,
@@ -30,11 +31,11 @@ from repro_torch.models.layers import (
 from repro_torch.models.params import P, Specs
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+def _ported(cfg: ArchConfig) -> None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"the {cfg.family!r} block is not ported yet (ROADMAP Queue 1, "
-            "item 8 for moe, item 9 for vlm)")
+            f"the {cfg.family!r} block is not ported yet (ROADMAP Queue 1 "
+            "item 9)")
 
 
 def stack_specs(specs: Specs, n: int) -> Specs:
@@ -49,13 +50,17 @@ def stack_specs(specs: Specs, n: int) -> Specs:
 
 
 def block_specs(cfg: ArchConfig) -> Specs:
-    _dense_only(cfg)
-    return {
+    _ported(cfg)
+    specs: Specs = {
         "attn_norm": P((cfg.d_model,), ("embed",), init="zeros"),
         "attn": attn.attention_specs(cfg),
         "mlp_norm": P((cfg.d_model,), ("embed",), init="zeros"),
-        "mlp": mlp_specs(cfg),
     }
+    if cfg.family == "moe":
+        specs["moe"] = moe_lib.moe_specs(cfg)
+    else:
+        specs["mlp"] = mlp_specs(cfg)
+    return specs
 
 
 def lm_specs(cfg: ArchConfig) -> Specs:
@@ -84,38 +89,57 @@ def unbind_layers(layers: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
 # Training forward
 # ---------------------------------------------------------------------------
 
-def _block_train(cfg: ArchConfig, x: torch.Tensor,
-                 p: Dict[str, Any]) -> torch.Tensor:
+def _block_train(cfg: ArchConfig, moe_strategy: str, x: torch.Tensor,
+                 p: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block. Returns (x, moe_aux): the (aux, z, drop) 3-vector of the
+    MoE layer, or zeros."""
     h = x + attn.attention_train(cfg, p["attn"],
                                  rms_norm(x, p["attn_norm"], cfg.norm_eps))
     hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-    return h + mlp_apply(cfg, p["mlp"], hn)
+    if cfg.family == "moe":
+        y, m = moe_lib.moe_apply(cfg, p["moe"], hn, moe_strategy)
+        aux = torch.stack([m["moe_aux_loss"], m["moe_z_loss"],
+                           m["moe_drop_frac"]])
+    else:
+        y = mlp_apply(cfg, p["mlp"], hn)
+        aux = torch.zeros((3,), dtype=torch.float32, device=x.device)
+    return h + y, aux
 
 
-def backbone_train(cfg: ArchConfig, params: Dict[str, Any],
-                   x: torch.Tensor) -> torch.Tensor:
-    """Run all blocks over embedded input x: (B, S, D); final-normed."""
-    _dense_only(cfg)
-    x, _ = scan(lambda h, p: (_block_train(cfg, h, p), None), x,
-                unbind_layers(params["layers"], cfg.n_layers), name="layers",
-                remat=cfg.remat)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+def backbone_train(cfg: ArchConfig, params: Dict[str, Any], x: torch.Tensor,
+                   moe_strategy: str = "einsum"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run all blocks over embedded input x: (B, S, D).  Returns the
+    final-normed h and the layers' MoE 3-vectors summed."""
+    _ported(cfg)
+    x, auxs = scan(lambda h, p: _block_train(cfg, moe_strategy, h, p), x,
+                   unbind_layers(params["layers"], cfg.n_layers),
+                   name="layers", remat=cfg.remat)
+    return (rms_norm(x, params["final_norm"], cfg.norm_eps),
+            torch.sum(torch.stack(auxs), dim=0))
 
 
 def train_loss(cfg: ArchConfig, params: Dict[str, Any],
-               batch: Dict[str, torch.Tensor]
+               batch: Dict[str, torch.Tensor], moe_strategy: str = "einsum"
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy over ``batch["tokens"]`` (B, S + 1);
-    labels below 0 are masked out.  Returns (loss, metrics)."""
+    labels below 0 are masked out.  The MoE family adds ``0.01·aux +
+    1e-3·z``.  Returns (loss, metrics)."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     x = embed_tokens(params["embed"], inputs)
-    h = backbone_train(cfg, params, x)
+    h, aux = backbone_train(cfg, params, x, moe_strategy)
     mask = (labels >= 0).float()
     loss_sum, count = chunked_cross_entropy(
         params["embed"], h, torch.clamp(labels, min=0), mask, cfg.loss_chunk)
     loss = loss_sum / torch.clamp(count, min=1.0)
-    return loss, {"ce_loss": loss, "tokens": count, "loss": loss}
+    metrics = {"ce_loss": loss, "tokens": count}
+    if cfg.family == "moe":
+        metrics.update(moe_aux_loss=aux[0], moe_z_loss=aux[1],
+                       moe_drop_frac=aux[2])
+        loss = loss + 0.01 * aux[0] + 1e-3 * aux[1]
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +156,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                                       dtype, device))
 
 
+def _serve_ffn(cfg: ArchConfig, p: Dict[str, Any],
+               hn: torch.Tensor) -> torch.Tensor:
+    """The block's FFN at serve time: the MoE layer at
+    ``SERVE_CAPACITY_FACTOR`` (einsum dispatch), or the MLP."""
+    if cfg.family == "moe":
+        return moe_lib.moe_apply(
+            cfg, p["moe"], hn,
+            capacity_factor=moe_lib.SERVE_CAPACITY_FACTOR)[0]
+    return mlp_apply(cfg, p["mlp"], hn)
+
+
 def _block_prefill(cfg: ArchConfig, x: torch.Tensor, p: Dict[str, Any],
                    max_len: int):
     """Block forward that also emits this layer's (padded) K/V for the
@@ -143,8 +178,7 @@ def _block_prefill(cfg: ArchConfig, x: torch.Tensor, p: Dict[str, Any],
     o = attn.attend(q, k, v, causal=True,
                     softmax_scale=cfg.resolved_head_dim() ** -0.5)
     h = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
-    hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-    out = h + mlp_apply(cfg, p["mlp"], hn)
+    out = h + _serve_ffn(cfg, p, rms_norm(h, p["mlp_norm"], cfg.norm_eps))
     pad = (0, 0, 0, 0, 0, max_len - S)          # zeros after position S
     return out, (F.pad(k, pad), F.pad(v, pad))
 
@@ -154,7 +188,7 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any],
             ) -> Tuple[torch.Tensor, LMCache]:
     """Process the full prompt; returns (last-position logits, primed
     cache of ``max_len`` positions)."""
-    _dense_only(cfg)
+    _ported(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens)
     B, S, _ = x.shape
@@ -176,7 +210,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: LMCache,
     """One decode step. tokens: (B, 1) int; returns (logits (B, 1, V),
     the cache one token longer).  Each layer's new K/V is written into the
     cache's buffers in place (``attention_decode``)."""
-    _dense_only(cfg)
+    _ported(cfg)
     kv = cache.kv
     x = embed_tokens(params["embed"], tokens)
     for i in range(cfg.n_layers):
@@ -185,8 +219,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: LMCache,
         o, _, _ = attn.attention_decode(cfg, p["attn"], xn, kv.k[i],
                                         kv.v[i], kv.length)
         h = x + o
-        hn = rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-        x = h + mlp_apply(cfg, p["mlp"], hn)
+        x = h + _serve_ffn(cfg, p, rms_norm(h, p["mlp_norm"], cfg.norm_eps))
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_for(params["embed"], h)
     return logits, LMCache(kv._replace(length=kv.length + 1))

@@ -216,6 +216,10 @@ FLASH_CASES = [
     # the other compiled head dims at full length
     (2, 8, 2, 2048, 2048, 32, True, torch.float32),
     (1, 8, 8, 2048, 2048, 128, True, torch.float32),
+    # the MoE layers at h = 128, S cut to 512: moonshot-v1-16b-a3b's MHA
+    # (16/16) and dbrx-132b's GQA (48/8)
+    (2, 16, 16, 512, 512, 128, True, torch.float32),
+    (1, 48, 8, 512, 512, 128, True, torch.float32),
 ]
 
 
@@ -415,6 +419,40 @@ def test_smoke_model_loss_through_the_kernels(card, arch):
             fk.flash_attention.launches - before[1]) == (cfg.n_layers, sites)
     want = float(plain.train_loss(params, {"tokens": toks})[0])
     assert np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m",
+                                  "zamba2-2.7b", "moonshot-v1-16b-a3b"])
+def test_smoke_engine_on_the_card_equals_the_cpu(card, arch):
+    """The serving engine on the card gives the CPU engine's greedy
+    streams on the same weights and mixed traffic (the engine's argmax
+    takes logits within its tie tolerance as ties)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.serving import Request, ServingEngine
+    cfg = get_smoke(arch)
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(cpu.generator(0))
+
+    def reqs():
+        rng = np.random.default_rng(2)
+        return [Request(uid=i, max_new_tokens=6, seed=i,
+                        prompt=rng.integers(1, cfg.vocab_size, 3 + 2 * i),
+                        temperature=0.0 if i % 2 == 0 else 0.8)
+                for i in range(5)]
+
+    want = ServingEngine(cpu, params, batch_slots=3, max_seq=48).run(reqs())
+    eng = ServingEngine(build_model(cfg, device=card),
+                        tree_map(lambda t: t.to(card), params),
+                        batch_slots=3, max_seq=48)
+    assert getattr(eng.cache, "kv", eng.cache).length.is_cuda
+    got = eng.run(reqs())
+    assert [len(r.tokens) for r in got] == [len(r.tokens) for r in want]
+    for g, w in zip(got, want):
+        if g.uid % 2 == 0:
+            assert g.tokens == w.tokens, g.uid
 
 
 @pytest.mark.cuda

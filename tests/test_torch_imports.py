@@ -74,7 +74,11 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core",
            "repro_torch.monitor.net", "repro_torch.monitor.chaos",
            "repro_torch.runs", "repro_torch.runs.store",
            "repro_torch.runs.align", "repro_torch.runs.cluster",
-           "repro_torch.runs.diff", "repro_torch.runs.report"]
+           "repro_torch.runs.diff", "repro_torch.runs.report",
+           "repro_torch.configs.moonshot_v1_16b_a3b",
+           "repro_torch.configs.dbrx_132b", "repro_torch.models.moe",
+           "repro_torch.serving", "repro_torch.serving.engine",
+           "repro_torch.launch", "repro_torch.launch.serve"]
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():
@@ -124,6 +128,27 @@ def test_model_entry_points_run_with_jax_and_repro_blocked():
                                           logits[:, -1].argmax(-1)[:, None])
             assert torch.isfinite(loss)
             assert logits.shape == (2, 1, cfg.vocab_size)
+        print("ok")
+    """)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_serving_engine_runs_with_jax_and_repro_blocked():
+    out = _run("""
+        import numpy as np
+        from repro_torch import build_model
+        from repro_torch.configs import get_smoke
+        from repro_torch.serving import Request, ServingEngine
+        for arch in ("tinyllama-1.1b", "zamba2-2.7b", "moonshot-v1-16b-a3b"):
+            m = build_model(get_smoke(arch), device="cpu")
+            eng = ServingEngine(m, m.init(m.generator(0)), batch_slots=2,
+                                max_seq=24)
+            res = eng.run([Request(uid=i, prompt=np.arange(1, 4 + i),
+                                   max_new_tokens=3, temperature=0.5 * i,
+                                   seed=i) for i in range(3)])
+            assert [len(r.tokens) for r in res] == [3, 3, 3]
+        assert "jax" not in sys.modules
         print("ok")
     """)
     assert out.returncode == 0, out.stderr

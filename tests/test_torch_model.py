@@ -253,12 +253,13 @@ def test_full_config_is_tinyllama():
             cfg.resolved_head_dim(), cfg.d_ff, cfg.vocab_size) == \
         (22, 2048, 32, 4, 64, 5632, 32000)
     assert cfg.pdtype() == cfg.cdtype() == torch.float32
-    assert ARCHS == [ARCH, "mamba2-130m", "zamba2-2.7b"]
+    assert ARCHS == [ARCH, "mamba2-130m", "zamba2-2.7b",
+                     "moonshot-v1-16b-a3b", "dbrx-132b"]
     with pytest.raises(KeyError, match="not ported yet"):
         get("yi-6b")
 
 
-@pytest.mark.parametrize("family", ["moe", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_build_model_refuses_families_not_ported(family):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_smoke(ARCH).replace(family=family), device="cpu")

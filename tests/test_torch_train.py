@@ -1,10 +1,10 @@
 """The port's train step on the CPU against the JAX package's.
 
-Smoke-size tinyllama, mamba2 and zamba2 with the JAX package's weights
-carried over by ``params_from_reference`` and the same seeded tokens:
-the loss and every gradient leaf, then one whole ``make_train_step``
-step's metrics (plain, with two microbatches, and with int8
-error-feedback compression).  Gradients and the optimizer are compared
+Smoke-size tinyllama, mamba2, zamba2 and moonshot (MoE) with the JAX
+package's weights carried over by ``params_from_reference`` and the same
+seeded tokens: the loss and every gradient leaf, then one whole
+``make_train_step`` step's metrics (plain, with two microbatches, and
+with int8 error-feedback compression).  Gradients and the optimizer are compared
 apart (the optimizer in ``tests/test_torch_optim.py``): AdamW's first
 step moves a parameter by ±lr whatever the size of its gradient, so a
 gradient near zero whose sign differs between the packages would move
@@ -40,7 +40,7 @@ from repro_torch.optim.compress import init_residual
 from repro_torch.optim.tree import leaves, unflatten_like
 from repro_torch.training import TrainState, make_train_step
 
-ARCHS = ["tinyllama-1.1b", "mamba2-130m", "zamba2-2.7b"]
+ARCHS = ["tinyllama-1.1b", "mamba2-130m", "zamba2-2.7b", "moonshot-v1-16b-a3b"]
 SHAPE = (4, 33)
 RUNS = {"plain": {}, "microbatch2": {"microbatch": 2},
         "compress": {"grad_compress": True}}
