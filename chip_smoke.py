@@ -95,7 +95,22 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    request completes, uid 0 alone equals its batched stream, a second
    engine gives every stream again; tokens/s, latency, the decode step's
    time, the smallest greedy top-2 gap, and one decode step of tinyllama
-   and of moonshot under the profiler.
+   and of moonshot under the profiler;
+12. zoo — the flash kernel at the zoo's layers against its plain version,
+   with its time, the plain version's, SDPA's and its bound: gemma-7b's
+   (2, 16/16, 2048, h = 256) causal in float32 and bfloat16,
+   seamless-m4t-medium's encoder layer (4, 16/16, 1024, h = 64)
+   non-causal, yi-6b's (2, 32/4, 2048) and nemotron-4-15b's (1, 48/8,
+   2048) at h = 128; then nemotron-4-15b, gemma-7b, yi-6b, internvl2-2b
+   and seamless-m4t-medium at their published widths and depths, random
+   f32 weights from a seed: the loss through the kernel against the plain
+   path (tokens (2, 2049); internvl2 after 256 random patch embeddings,
+   seamless (4, 513) after 1024 random frames), one flash launch per
+   self-attention layer (seamless: 12 non-causal in the encoder, 12
+   causal in the decoder); one profiled loss of gemma and of seamless;
+   each model's 128-token prompts prefilled and greedy-decoded for 16
+   tokens, twice; one AdamW train step of internvl2 and of seamless
+   through ``make_train_step``, finite and with the plain loss.
 
 The detection kernels' launch counts are reset just before phase 3 and
 read just after phase 4, again just before phase 7's detect and just
@@ -103,8 +118,10 @@ after it, and again just before phase 8 and just after it (the JSON
 line's ``ab_fused`` count is the sum); the kernels' counts of each model
 path just before its first loss and just after its serving run; the
 flash count just before phase 10's models and just after (added to the
-JSON line's), and every count just before phase 11 and just after (the
-engine reaches no kernel, and the phase fails if one is launched).
+JSON line's), every count just before phase 11 and just after (the
+engine reaches no kernel, and the phase fails if one is launched), and
+the flash count just before phase 12's models and just after (added to
+the JSON line's).
 It exits non-zero, printing no
 result, when any check fails, when there is no CUDA card, or when the
 port is not next to it.  The last line is ``{"ok": true, "device":
@@ -191,6 +208,26 @@ SERVE = [("tinyllama-1.1b", None, 4, 8, 32),
 SERVE_MAX_SEQ = 256
 SERVE_PROMPTS = (16, 64)        # prompt lengths drawn in [16, 64]
 SERVE_PROFILED = ("tinyllama-1.1b", "moonshot-v1-16b-a3b")
+# [zoo]: (arch, layers kept or None for the published depth, loss tokens);
+# every width is the published one; encdec / vlm losses also take
+# frontend_len random frame / patch embeddings a row (1024 and 256)
+ZOO_MODELS = [("nemotron-4-15b", None, (2, 2049)),
+              ("gemma-7b", None, (2, 2049)),
+              ("yi-6b", None, (2, 2049)),
+              ("internvl2-2b", None, (2, 2049)),
+              ("seamless-m4t-medium", None, (4, 513))]
+ZOO_DECODE = 16                 # greedy tokens after a 128-token prefill
+ZOO_PROFILED = ("gemma-7b", "seamless-m4t-medium")
+ZOO_TRAINED = ("internvl2-2b", "seamless-m4t-medium")
+FRONTEND_KEY = {"encdec": "frames", "vlm": "patches"}
+# the flash kernel at the zoo's layers: gemma-7b's h = 256 (f32, bf16),
+# seamless-m4t-medium's non-causal encoder layer, yi-6b's and
+# nemotron-4-15b's GQA at h = 128
+FLASH_ZOO = [(2, 16, 16, 2048, 2048, 256, True, "float32"),
+             (2, 16, 16, 2048, 2048, 256, True, "bfloat16"),
+             (4, 16, 16, 1024, 1024, 64, False, "float32"),
+             (2, 32, 4, 2048, 2048, 128, True, "float32"),
+             (1, 48, 8, 2048, 2048, 128, True, "float32")]
 
 
 class SmokeFailure(Exception):
@@ -1479,29 +1516,33 @@ def phase_runs(card: str, mon) -> None:
 
 # -- phase 10: the MoE family ------------------------------------------------
 
-def phase_flash128(card: str):
-    """The flash kernel at the MoE layers (h = 128, f32) against its plain
-    version within ``FLASH_TOL``; its time, the plain version's, SDPA's and
-    the bound, a line each.  Returns the rows."""
+def flash_layers(cases, card: str):
+    """The flash kernel at model layers ``(B, nq, nkv, Sq, Sk, h, causal,
+    dtype name)`` against its plain version within ``FLASH_TOL``; its time,
+    the plain version's, SDPA's and the bound, a line each.  A causal
+    call's bound counts the lower triangle, 2 B nq S^2 h operations; a
+    full one both products over the whole square, 4 B nq Sq Sk h.
+    Returns the rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ref
 
     rows = []
-    for case in FLASH_MOE:
-        B, nq, nkv, S, _, h, causal = case
+    for case in cases:
+        B, nq, nkv, Sq, Sk, h, causal, dt = case
         scale = h ** -0.5
-        q, k, v = flash_inputs(case + ("float32",), seed=nq)
+        q, k, v = flash_inputs(case, seed=nq)
         got = kernel.flash_attention(q, k, v, causal=causal,
                                      softmax_scale=scale)
         want = ref.attention(q, k, v, causal=causal, softmax_scale=scale)
         torch.cuda.synchronize()
-        d = (got - want).abs()
-        tol = FLASH_TOL["float32"]
-        check(bool((d <= tol + tol * want.abs()).all())
+        d = (got.float() - want.float()).abs()
+        tol = FLASH_TOL[dt]
+        check(bool((d <= tol + tol * want.float().abs()).all())
               and bool(torch.isfinite(got).all()),
               f"flash {case}: max abs err {d.max().item():.3g}")
-        bound, core = flash_bound(q, k, v, 2 * B * nq * S * S * h)
+        flops = (2 if causal else 4) * B * nq * Sq * Sk * h
+        bound, core = flash_bound(q, k, v, flops)
         row = dict(
             case=case, max_abs_err=d.max().item(),
             ms=cuda_ms(lambda: kernel.flash_attention(
@@ -1513,9 +1554,10 @@ def phase_flash128(card: str):
                 enable_gqa=nq != nkv)),
             bound=bound, core_bound=core)
         rows.append(row)
-        print(f"  flash_attention {case} f32: {row['ms']:.4f} ms  plain "
+        design = "3xTF32" if dt == "float32" else "bf16"
+        print(f"  flash_attention {case}: {row['ms']:.4f} ms  plain "
               f"{row['plain_ms']:.4f} ms  bound {bound[0]:.4f} ms "
-              f"({bound[1]}, 3xTF32; CUDA-core f32 {core[0]:.4f} ms)  sdpa "
+              f"({bound[1]}, {design}; CUDA-core f32 {core[0]:.4f} ms)  sdpa "
               f"{row['library_ms']:.4f} ms  max abs err "
               f"{row['max_abs_err']:.3g} within {tol}  [{card}]")
         del q, k, v, got, want, d
@@ -1717,6 +1759,160 @@ def phase_serve(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# -- phase 12: the rest of the model zoo ------------------------------------
+
+def zoo_batch(cfg, shape, device, seed: int = 0):
+    """Seeded tokens of ``shape`` and, for encdec / vlm, ``frontend_len``
+    random N(0, 1) frame or patch embeddings a row, on ``device``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, shape, dtype=np.int64)).to(device)}
+    key = FRONTEND_KEY.get(cfg.family)
+    if key:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        batch[key] = torch.randn((shape[0], cfg.frontend_len, cfg.d_model),
+                                 generator=gen, device=device)
+    return batch
+
+
+def phase_zoo(card: str) -> int:
+    """[zoo]: each of ``ZOO_MODELS`` at its published widths, random f32
+    weights from seed 0: the loss through the flash kernel against the
+    plain path (within 1e-3, one flash launch per self-attention layer:
+    the decoder's, and for seamless the encoder's too, non-causal); for
+    ``ZOO_PROFILED`` one more kernel loss under the profiler; 2-4 prompts
+    of 128 tokens (after the frames or patches) prefilled and decoded
+    greedily for ``ZOO_DECODE`` tokens, twice; for ``ZOO_TRAINED`` one
+    AdamW train step through ``make_train_step`` (the plain path: the
+    kernel has no backward), finite and with the plain loss.  Returns the
+    flash launches the phase must have made."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init, constant
+    from repro_torch.training import TrainState, make_train_step
+
+    want = 0
+    for arch, layers, shape in ZOO_MODELS:
+        cfg = get(arch) if layers is None else \
+            get(arch).replace(n_layers=layers)
+        depth = "" if layers is None else \
+            f" ({layers} of {get(arch).n_layers} layers)"
+        plain = build_model(cfg)
+        kern = build_model(cfg.replace(use_kernels=True))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = plain.init(plain.generator(0))
+        torch.cuda.synchronize()
+        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        print(f"  {arch}{depth} init: {plain.param_count()} params, "
+              f"{n_bytes / 1e9:.2f} GB on the card, "
+              f"{time.perf_counter() - t0:.1f} s")
+        batch = zoo_batch(cfg, shape, plain.device)
+        per_loss = cfg.n_layers + (cfg.enc_layers
+                                   if cfg.family == "encdec" else 0)
+        secs = {}
+        with torch.no_grad():
+            before = flash.flash_attention.launches
+            t0 = time.perf_counter()
+            lk = float(kern.train_loss(params, batch)[0])
+            secs["kernel"] = time.perf_counter() - t0
+            made = flash.flash_attention.launches - before
+            t0 = time.perf_counter()
+            l0 = float(plain.train_loss(params, batch)[0])
+            secs["plain"] = time.perf_counter() - t0
+        want += per_loss
+        check(np.isfinite(lk) and np.isfinite(l0),
+              f"{arch} loss: kernel {lk}, plain {l0}")
+        check(made == per_loss, f"{arch} loss: {made} flash launches, "
+              f"expected {per_loss}")
+        check(abs(lk - l0) < 1e-3, f"{arch}: kernel loss {lk!r} vs plain "
+              f"{l0!r}")
+        front = {k: tuple(v.shape) for k, v in batch.items()
+                 if k != "tokens"}
+        print(f"  {arch} train_loss tokens {shape}"
+              + (f", {front}" if front else "")
+              + f": kernel {lk!r} ({secs['kernel']:.3f} s), plain {l0!r} "
+              f"({secs['plain']:.3f} s; host clock, first calls); |diff| "
+              f"{abs(lk - l0):.3g}; {made} flash launches  [{card}]")
+        if arch in ZOO_PROFILED:
+            with torch.no_grad():
+                got = profile_cycle(
+                    lambda: kern.train_loss(params, batch)[0],
+                    f"{arch} train_loss {shape}",
+                    share=("flash_", "tf32_planes"))
+            want += per_loss
+            check(abs(float(got) - l0) < 1e-3,
+                  f"{arch}: the profiled loss {float(got)!r} vs {l0!r}")
+
+        prompts = {k: v[:, :PROMPT].contiguous() if k == "tokens" else v
+                   for k, v in batch.items()}
+        prefix = cfg.frontend_len if cfg.family == "vlm" else 0
+
+        def serve():
+            steps = []
+            with torch.no_grad():
+                logits, cache = plain.prefill(params, prompts,
+                                              prefix + MAX_LEN)
+                check(bool(torch.isfinite(logits).all()),
+                      f"{arch}: prefill logits not finite")
+                out = []
+                for _ in range(ZOO_DECODE):
+                    tok = logits[:, -1].argmax(-1, keepdim=True)
+                    out.append(tok)
+                    t0 = time.perf_counter()
+                    logits, cache = plain.decode_step(params, cache, tok)
+                    torch.cuda.synchronize()
+                    steps.append((time.perf_counter() - t0) * 1e3)
+            kv = cache.self_kv if cfg.family == "encdec" else cache.kv
+            check(int(kv.length[0]) == prefix + PROMPT + ZOO_DECODE,
+                  f"{arch}: cache length {int(kv.length[0])}")
+            return torch.cat(out, 1), steps
+
+        toks_a, steps = serve()
+        toks_b, _ = serve()
+        check(torch.equal(toks_a, toks_b), f"{arch}: greedy decode is not "
+              "deterministic")
+        print(f"  {arch} prefill {shape[0]} x {PROMPT}"
+              + (f" after {prefix} patches" if prefix else "")
+              + f" into {prefix + MAX_LEN}, {ZOO_DECODE} greedy tokens "
+              f"twice: identical; decode step "
+              f"{statistics.median(steps):.3f} ms (median of {ZOO_DECODE}, "
+              f"host clock)  [{card}]")
+
+        if arch in ZOO_TRAINED:
+            step = make_train_step(plain, RunConfig(), constant(1e-3))
+            state = TrainState(params, adamw_init(params), None,
+                               torch.zeros((), dtype=torch.int32,
+                                           device=plain.device))
+            t0 = time.perf_counter()
+            new, met = step(state, batch)
+            torch.cuda.synchronize()
+            t_step = time.perf_counter() - t0
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            check(np.isfinite(loss) and np.isfinite(gnorm)
+                  and all(bool(torch.isfinite(t).all())
+                          for t in _leaves(new.params)),
+                  f"{arch} train step: loss {loss}, grad norm {gnorm}")
+            check(abs(loss - l0) <= 1e-5 * abs(l0),
+                  f"{arch} train step loss {loss!r} vs train_loss {l0!r}")
+            print(f"  {arch} AdamW train step (remat, no kernel) tokens "
+                  f"{shape}: loss {loss!r} (= train_loss), grad norm "
+                  f"{gnorm:.6g}, {t_step:.3f} s (host clock, first call)  "
+                  f"[{card}]")
+            del step, state, new, met
+        print(f"  {arch} peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del params, plain, kern, batch, prompts
+        torch.cuda.empty_cache()
+    return want
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1850,7 +2046,7 @@ def main() -> int:
         print(f"[moe] the MoE family at full width (depth cut): the flash "
               f"kernel at h = 128, {', '.join(m[0] for m in MOE_MODELS)}; "
               f"{card}")
-        phase_flash128(card)
+        flash_layers([c + ("float32",) for c in FLASH_MOE], card)
         flash.flash_attention.launches = 0
         want = phase_moe(card)
         got = flash.flash_attention.launches
@@ -1873,6 +2069,18 @@ def main() -> int:
         check(not any(served.values()), f"serve: kernel launches {served}")
         print(f"[serve] kernel launches {served}; phase wall time "
               f"{time.perf_counter() - t_serve:.1f} s  [{card}]")
+        t_zoo = time.perf_counter()
+        print(f"[zoo] the rest of the model zoo at full width: the flash "
+              f"kernel at h = 256 and non-causal, "
+              f"{', '.join(m[0] for m in ZOO_MODELS)}; {card}")
+        flash_layers(FLASH_ZOO, card)
+        flash.flash_attention.launches = 0
+        want = phase_zoo(card)
+        got = flash.flash_attention.launches
+        check(got == want, f"zoo: flash launches {got}, expected {want}")
+        launches["flash_attention"] += got
+        print(f"[zoo] flash launches {got}; phase wall time "
+              f"{time.perf_counter() - t_zoo:.1f} s  [{card}]")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

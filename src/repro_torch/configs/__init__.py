@@ -1,9 +1,8 @@
 """Architecture/shape registry.
 
 ``get(name)`` returns the full published config; ``get_smoke(name)`` returns a
-reduced same-family config for CPU tests.  ``ARCHS`` lists the ids the port
-has; ``PENDING`` the ones whose model families are not ported yet (each
-config comes with its model, ROADMAP Queue 1 items 8-9).
+reduced same-family config for CPU tests.  ``ARCHS`` lists all assigned ids,
+in the JAX package's order.
 """
 from __future__ import annotations
 
@@ -20,24 +19,22 @@ from repro_torch.configs.base import (
 )
 
 _MODULES: Dict[str, str] = {
+    "nemotron-4-15b": "nemotron_4_15b",
+    "yi-6b": "yi_6b",
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "gemma-7b": "gemma_7b",
     "mamba2-130m": "mamba2_130m",
-    "zamba2-2.7b": "zamba2_2_7b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "internvl2-2b": "internvl2_2b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "dbrx-132b": "dbrx_132b",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 ARCHS: List[str] = list(_MODULES)
-PENDING: List[str] = [
-    "nemotron-4-15b", "yi-6b", "gemma-7b", "seamless-m4t-medium",
-    "internvl2-2b",
-]
 
 
 def _module(name: str):
-    if name in PENDING:
-        raise KeyError(f"architecture {name!r} is not ported yet "
-                       f"(ROADMAP Queue 1 items 8-9); ported: {ARCHS}")
     if name not in _MODULES:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
@@ -52,6 +49,6 @@ def get_smoke(name: str) -> ArchConfig:
 
 
 __all__ = [
-    "ArchConfig", "RunConfig", "ShapeConfig", "SHAPES", "ARCHS", "PENDING",
+    "ArchConfig", "RunConfig", "ShapeConfig", "SHAPES", "ARCHS",
     "LONG_CONTEXT_FAMILIES", "shape_applicable", "get", "get_smoke",
 ]

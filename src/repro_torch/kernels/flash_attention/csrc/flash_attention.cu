@@ -51,16 +51,36 @@
 // is not on the models' path (they run f32); wgmma would fit its layouts
 // too and is later work.
 //
+// f32 at h = 256 (gemma-7b): flash_tf32_qs.  The design above does not
+// fit: Q's two planes in registers would take 256 a thread for one
+// warpgroup of 64 rows, beside O's 128, and two stages of 32-key tiles
+// 256 KB of shared memory (an H100 CTA has 227 KB).  So:
+//   * one warpgroup of 64 query rows per CTA (wgmma's M), 128 threads;
+//   * Q split once into its big and small TF32 planes in shared memory
+//     (2 x 64 KB, the core-matrix layout of the K planes) and fed to wgmma
+//     as the A operand by descriptor; O's 128 accumulators a thread stay in
+//     registers, P comes from the score accumulators as above;
+//   * K/V tiles of BK = 16 keys, the K planes and the V planes of a tile in
+//     two bulk copies on two mbarriers (32 KB each): K of tile kt + 1 loads
+//     while P V of tile kt runs, V of tile kt + 1 while the scores of tile
+//     kt + 1 are made.  128 + 32 + 32 = 192 KB; one CTA an SM.
+//   * QK^T is m64n16k8 with both operands in shared memory, 96 a tile;
+//     P V is two m64n128k8 (O's two column halves) per 8 keys, 3 each for
+//     3xTF32.  A simple instance that is right, not a fast one: the A reads
+//     of the narrow QK^T products bound it on shared-memory bandwidth.
+//
 // Both: causal tiles wholly above the diagonal, judged by the CTA's last
 // real query row, are never loaded; a warpgroup (warp for bf16) skips the
 // math of a tile wholly above its own rows.  The output is written once,
 // acc / l, with l == 0 dividing by 1, rounded once to the input type.  The
 // caller's strides are taken as given (16-byte aligned), so the models'
 // (B, S, heads, h) layout needs no transpose; GQA query head qh reads KV
-// head qh / group, never replicated.  Head dims 32, 64, 80 and 128 are
-// compiled; any other is refused.  Shared memory per CTA (f32): two
+// head qh / group, never replicated.  Head dims 32, 64, 80, 128 and 256
+// are compiled; any other is refused.  Shared memory per CTA (f32): two
 // stages of 4 BK h floats, 64 KB at h = 32, 128 KB at h = 64, 160 KB at
-// h = 80 (BK = 64) and 128 KB at h = 128 (BK = 32); one CTA an SM.
+// h = 80 (BK = 64) and 128 KB at h = 128 (BK = 32); 192 KB at h = 256
+// (above); one CTA an SM.  bf16: (128 + 4 x 64) (h + 8) x 2 bytes, 198 KB
+// at h = 256.
 
 #include <cstdint>
 #include <cstring>
@@ -226,6 +246,19 @@ template <> struct Wgmma<128> {
   }
 };
 
+// m64n16k8 TF32 products with A and B both from shared-memory
+// descriptors (the scores of flash_tf32_qs), D += A B in f32.
+__device__ __forceinline__ void wgmma_ss16(float* d, uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db));
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -250,17 +283,22 @@ __device__ __forceinline__ uint64_t make_desc(const float* p, uint32_t lbo,
 }
 
 template <int H> struct Tf32Cfg {
-  static constexpr int BQ = 128;                    // query rows per CTA
-  static constexpr int NT = 256;                    // 2 warpgroups
-  static constexpr int BK = H >= 128 ? 32 : 64;     // keys per tile
+  // h = 256: Q's planes in shared memory (flash_tf32_qs), one warpgroup
+  static constexpr bool QSMEM = H > 128;
+  static constexpr int BQ = QSMEM ? 64 : 128;       // query rows per CTA
+  static constexpr int NT = QSMEM ? 128 : 256;      // 1 or 2 warpgroups
+  static constexpr int BK = QSMEM ? 16 : H >= 128 ? 32 : 64;  // keys a tile
   static constexpr int LDQ = H + 4;                 // staged Q rows
   static constexpr int PL = BK * H;                 // a plane (floats)
   // a tile's four planes: K big, K small, V big, V small
   static constexpr int STAGE = 4 * PL;
   static constexpr uint32_t STAGE_BYTES = STAGE * sizeof(float);
-  // shared memory: two stages; Q is staged over them before the first
+  // shared memory: two stages, Q staged over them before the first; or
+  // (QSMEM) Q's two planes and one tile
   static constexpr size_t BYTES =
-      (size_t)(2 * STAGE > BQ * LDQ ? 2 * STAGE : BQ * LDQ) * sizeof(float);
+      QSMEM ? (size_t)(2 * BQ * H + STAGE) * sizeof(float)
+            : (size_t)(2 * STAGE > BQ * LDQ ? 2 * STAGE : BQ * LDQ) *
+                  sizeof(float);
   static constexpr uint32_t SBO_K = (H / 4) * 128;  // per 8 keys
   static constexpr uint32_t SBO_V = (BK / 4) * 128; // per 8 head dims
 };
@@ -374,6 +412,83 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// One K/V tile's scores sc (a warpgroup's m64nBK accumulators) through
+// the online softmax in base 2 (the scores carry a factor log2 e, so exp2
+// is one instruction): scaled, masked (-inf past Sk, NEG_INF above the
+// diagonal, as in the reference; nothing when `whole`), the row max and
+// sum over the quad of threads that holds a row, O's NACC accumulators
+// rescaled; then P split into the TF32 A fragments of O += P V (k-step j
+// is keys 8j .. 8j + 7, logical k = q holding key 2q and k = q + 4 key
+// 2q + 1, so A is the accumulator of group j).
+template <int BK, int NACC>
+__device__ __forceinline__ void tf32_softmax(
+    float* sc, float* acc, float* m, float* l, uint32_t (*pb)[4],
+    uint32_t (*ps)[4], int k0, int Sk, int row0, int row1, int qd,
+    bool whole, bool causal, float scale2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    float x = sc[i] * scale2;
+    if (!whole) {
+      const int row = (i & 2) ? row1 : row0;
+      const int col = k0 + 8 * (i >> 2) + 2 * qd + (i & 1);
+      if (col >= Sk) x = -INFINITY;
+      else if (causal && col > row) x = NEG_INF;
+    }
+    sc[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+  float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    sc[i] = exp2f(sc[i] - m[(i >> 1) & 1]);
+    sum[(i >> 1) & 1] += sc[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l[r] = alpha[r] * l[r] + sum[r];
+  }
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const float a[4] = {sc[4 * j], sc[4 * j + 2], sc[4 * j + 1],
+                        sc[4 * j + 3]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(a[i], pb[j][i], ps[j][i]);
+  }
+}
+
+// out = acc / l, l == 0 dividing by 1, written once: this thread's rows
+// row0 and row1 of one head, acc[4 i + 2 r ..] at columns 8 i + 2 qd, + 1
+template <int H>
+__device__ __forceinline__ void tf32_store(float* op, long long os,
+                                           const float* acc, const float* l,
+                                           int row0, int row1, int qd,
+                                           int Sq) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? row1 : row0;
+    if (row >= Sq) continue;
+    const float den = l[r] > 0.f ? l[r] : 1.f;
+    float* orow = op + (long long)row * os + 2 * qd;
+#pragma unroll
+    for (int i = 0; i < H / 8; ++i)
+      *reinterpret_cast<float2*>(orow + 8 * i) =
+          make_float2(acc[4 * i + 2 * r] / den, acc[4 * i + 2 * r + 1] / den);
+  }
+}
+
 template <int H>
 __global__ void __launch_bounds__(Tf32Cfg<H>::NT, 1)
 flash_tf32(const float* __restrict__ q, const float* __restrict__ work,
@@ -461,56 +576,12 @@ flash_tf32(const float* __restrict__ q, const float* __restrict__ work,
       wg_commit();
       wg_wait0();
 
-      // scale, mask, online softmax in base 2 (the scores carry a factor
-      // log2 e, so exp2 is one instruction); a row's 4 threads share a quad
-      float mx[2] = {-INFINITY, -INFINITY};
       // a tile wholly below the diagonal and inside Sk masks nothing
       const bool whole = k0 + BK <= Sk && (!causal || k0 + BK - 1 <= w0);
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        float x = sc[i] * scale2;
-        if (!whole) {
-          const int row = (i & 2) ? row1 : row0;
-          const int col = k0 + 8 * (i >> 2) + 2 * qd + (i & 1);
-          if (col >= Sk) x = -INFINITY;
-          else if (causal && col > row) x = NEG_INF;
-        }
-        sc[i] = x;
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
-      }
-      float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        alpha[r] = exp2f(m[r] - m_new);
-        m[r] = m_new;
-      }
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        sc[i] = exp2f(sc[i] - m[(i >> 1) & 1]);
-        sum[(i >> 1) & 1] += sc[i];
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-        l[r] = alpha[r] * l[r] + sum[r];
-      }
-#pragma unroll
-      for (int i = 0; i < H / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-
-      // O += P V: k-step j is keys 8j .. 8j + 7, logical k = q holding key
-      // 2q and k = q + 4 key 2q + 1, so A is the accumulator of group j
       uint32_t pb[NS][4], ps[NS][4];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const float a[4] = {sc[4 * j], sc[4 * j + 2], sc[4 * j + 1],
-                            sc[4 * j + 3]};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) split(a[i], pb[j][i], ps[j][i]);
-      }
+      tf32_softmax<BK, H / 2>(sc, acc, m, l, pb, ps, k0, Sk, row0, row1, qd,
+                              whole, causal, scale2);
+      // O += P V
       wg_fence();
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
@@ -529,19 +600,140 @@ flash_tf32(const float* __restrict__ q, const float* __restrict__ work,
                 C::STAGE_BYTES, &bars[kt & 1]);
   }
 
-  // out = acc / l, l == 0 dividing by 1; written once
-  float* op = o + b * st.ob + qh * st.oh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r ? row1 : row0;
-    if (row >= Sq) continue;
-    const float den = l[r] > 0.f ? l[r] : 1.f;
-    float* orow = op + (long long)row * st.os + 2 * qd;
-#pragma unroll
-    for (int i = 0; i < H / 8; ++i)
-      *reinterpret_cast<float2*>(orow + 8 * i) =
-          make_float2(acc[4 * i + 2 * r] / den, acc[4 * i + 2 * r + 1] / den);
+  tf32_store<H>(o + b * st.ob + qh * st.oh, st.os, acc, l, row0, row1, qd,
+                Sq);
+}
+
+// f32 at h = 256: one warpgroup of 64 query rows; Q's planes in shared
+// memory as wgmma's A operand; K and V of each 16-key tile in separate
+// bulk copies (bars[0]: the K planes, bars[1]: the V planes), each half
+// refilled with tile kt + 1 as soon as tile kt is done with it.
+template <int H>
+__global__ void __launch_bounds__(Tf32Cfg<H>::NT, 1)
+flash_tf32_qs(const float* __restrict__ q, const float* __restrict__ work,
+              float* __restrict__ o, int nq, int nkv, int Sq, int Sk,
+              int n_tiles, Strides st, float scale, int causal) {
+  using C = Tf32Cfg<H>;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = BK / 8;
+  constexpr int HALF = 2 * C::PL;                   // a tile's K (V) planes
+  constexpr uint32_t HALF_BYTES = HALF * sizeof(float);
+  extern __shared__ float4 smem4[];
+  __shared__ uint64_t bars[2];
+  float* Qb = reinterpret_cast<float*>(smem4);      // BQ x H, core layout
+  float* Qs = Qb + BQ * H;
+  float* Kt = Qs + BQ * H;                          // K big, K small
+  float* Vt = Kt + HALF;                            // V big, V small
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int qt = gridDim.x - 1 - blockIdx.x;        // heaviest tiles first
+  const int qh = blockIdx.y, b = blockIdx.z;
+  const int kh = qh / (nq / nkv);
+  const int q0 = qt * BQ;
+  const int row0 = q0 + 16 * warp + g, row1 = row0 + 8;
+
+  const float* qp = q + b * st.qb + qh * st.qh;
+  const float* tiles = work + (size_t)(b * nkv + kh) * n_tiles * C::STAGE;
+
+  const int last_row = min(q0 + BQ, Sq) - 1;
+  const int kend = causal ? min(Sk, last_row + 1) : Sk;
+  const int n_kt = (kend + BK - 1) / BK;
+  const float scale2 = scale * 1.4426950408889634f;  // log2 e
+
+  if (tid == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bulk_load(Kt, tiles, HALF_BYTES, &bars[0]);     // tile 0 lands while
+    bulk_load(Vt, tiles + HALF, HALF_BYTES, &bars[1]);  // Q is split
   }
+  // Q split once into its TF32 planes, rows past Sq zero
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < BQ * H / 4; i += C::NT) {
+    const int nl = i & 7, c = (i >> 3) % (H / 4), ng = (i >> 3) / (H / 4);
+    const int r = 8 * ng + nl;
+    const float4 x = q0 + r < Sq
+        ? *reinterpret_cast<const float4*>(qp + (long long)(q0 + r) * st.qs +
+                                           4 * c)
+        : zero;
+    uint32_t bg[4], sl[4];
+    split(x.x, bg[0], sl[0]);
+    split(x.y, bg[1], sl[1]);
+    split(x.z, bg[2], sl[2]);
+    split(x.w, bg[3], sl[3]);
+    const int off = core_off<H>(r, 4 * c);
+    *reinterpret_cast<uint4*>(Qb + off) = make_uint4(bg[0], bg[1], bg[2], bg[3]);
+    *reinterpret_cast<uint4*>(Qs + off) = make_uint4(sl[0], sl[1], sl[2], sl[3]);
+  }
+  fence_async_smem();               // the planes are read by wgmma
+  __syncthreads();
+  const uint64_t dqb = make_desc(Qb, 128, C::SBO_K);
+  const uint64_t dqs = make_desc(Qs, 128, C::SBO_K);
+  const uint64_t dkb = make_desc(Kt, 128, C::SBO_K);
+  const uint64_t dks = make_desc(Kt + C::PL, 128, C::SBO_K);
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[H / 2];                 // O's columns 0-127, then 128-255
+#pragma unroll
+  for (int i = 0; i < H / 2; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    mbar_wait(&bars[0], kt & 1);                    // K of tile kt
+    // S = Q K^T: 64 x 16; k-step kk is 2 core matrices (256 bytes, 16 in
+    // the descriptor's address field) further along Q's and K's rows
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    wg_fence();
+#pragma unroll 4
+    for (int kk = 0; kk < H / 8; ++kk) {
+      const uint64_t step = 16ull * kk;
+      wgmma_ss16(sc, dqs + step, dkb + step);
+      wgmma_ss16(sc, dqb + step, dks + step);
+      wgmma_ss16(sc, dqb + step, dkb + step);
+    }
+    wg_commit();
+    wg_wait0();
+    __syncthreads();                // every warp is done with K of tile kt
+    if (tid == 0 && kt + 1 < n_kt)
+      bulk_load(Kt, tiles + (size_t)(kt + 1) * C::STAGE, HALF_BYTES,
+                &bars[0]);
+
+    const bool whole = k0 + BK <= Sk && (!causal || k0 + BK - 1 <= q0);
+    uint32_t pb[NS][4], ps[NS][4];
+    tf32_softmax<BK, H / 2>(sc, acc, m, l, pb, ps, k0, Sk, row0, row1, qd,
+                            whole, causal, scale2);
+
+    // O += P V, O's two column halves apart (head dims 128-255 start 16
+    // core-matrix rows, (H / 2) BK floats, into each V plane)
+    mbar_wait(&bars[1], kt & 1);                    // V of tile kt
+    wg_fence();
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float* Vb = Vt + hf * (H / 2) * BK;
+      const float* Vs = Vb + C::PL;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const uint64_t db = make_desc(Vb + 64 * j, 128, C::SBO_V);
+        const uint64_t ds = make_desc(Vs + 64 * j, 128, C::SBO_V);
+        Wgmma<H / 2>::run(acc + hf * (H / 4), ps[j], db);
+        Wgmma<H / 2>::run(acc + hf * (H / 4), pb[j], ds);
+        Wgmma<H / 2>::run(acc + hf * (H / 4), pb[j], db);
+      }
+    }
+    wg_commit();
+    wg_wait0();
+    __syncthreads();                // every warp is done with V of tile kt
+    if (tid == 0 && kt + 1 < n_kt)
+      bulk_load(Vt, tiles + (size_t)(kt + 1) * C::STAGE + HALF, HALF_BYTES,
+                &bars[1]);
+  }
+
+  // acc[4 i ..] holds columns 8 i .. 8 i + 7 in both halves (half hf
+  // starts at i = 16 hf), the layout tf32_store writes
+  tf32_store<H>(o + b * st.ob + qh * st.oh, st.os, acc, l, row0, row1, qd,
+                Sq);
 }
 
 // -- bf16 inputs: mma.sync ---------------------------------------------------
@@ -786,11 +978,19 @@ int launch(const float* q, const float* k, const float* v, float* o,
   tf32_planes<H><<<dim3(n_tiles, nkv, B), NT, 0, stream>>>(k, v, work, nkv,
                                                            Sk, n_tiles, st);
   cudaError_t e = cudaGetLastError();
-  if (e == cudaSuccess) e = smem_limit<flash_tf32<H>>(C::BYTES);
   if (e != cudaSuccess) return (int)e;
-  flash_tf32<H><<<dim3((Sq + C::BQ - 1) / C::BQ, nq, B), C::NT, C::BYTES,
-                  stream>>>(
-      q, work, o, nq, nkv, Sq, Sk, n_tiles, st, scale, causal);
+  const dim3 grid((Sq + C::BQ - 1) / C::BQ, nq, B);
+  if constexpr (C::QSMEM) {
+    e = smem_limit<flash_tf32_qs<H>>(C::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    flash_tf32_qs<H><<<grid, C::NT, C::BYTES, stream>>>(
+        q, work, o, nq, nkv, Sq, Sk, n_tiles, st, scale, causal);
+  } else {
+    e = smem_limit<flash_tf32<H>>(C::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    flash_tf32<H><<<grid, C::NT, C::BYTES, stream>>>(
+        q, work, o, nq, nkv, Sq, Sk, n_tiles, st, scale, causal);
+  }
   return (int)cudaGetLastError();
 }
 template <int H>
@@ -831,6 +1031,9 @@ int flash_impl(const void* q, const void* k, const void* v, void* o,
     case 128:
       return launch<128>(qt, kt, vt, ot, w, B, nq, nkv, Sq, Sk, st, scale,
                          causal, s);
+    case 256:
+      return launch<256>(qt, kt, vt, ot, w, B, nq, nkv, Sq, Sk, st, scale,
+                         causal, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -845,7 +1048,7 @@ const char* scalana_error_string(int code) {
 }
 
 // work: for f32, B * nkv * ceil(Sk / BK) tiles of 4 * BK * h floats (BK =
-// 64, 32 at h = 128), the K/V planes; unused for bf16
+// 64, 32 at h = 128, 16 at h = 256), the K/V planes; unused for bf16
 #define FLASH_ENTRY(NAME, T)                                                 \
   int NAME(const void* q, const void* k, const void* v, void* o,            \
            void* work, int B, int nq, int nkv, int Sq, int Sk, int h,       \

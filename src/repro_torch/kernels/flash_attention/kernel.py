@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 80, 128)    # head dims the kernel is compiled for
+HEAD_DIMS = (32, 64, 80, 128, 256)   # head dims the kernel is compiled for
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = ([_P] * 5 + [_I] * 6 + [_L] * 12
              + [ctypes.c_float, _I, _P])
@@ -38,8 +38,9 @@ LIBRARY = _build.Library(
 
 
 def tf32_tile(h: int) -> int:
-    """Keys per K/V tile of the float32 kernel (``Tf32Cfg<H>::BK``)."""
-    return 32 if h >= 128 else 64
+    """Keys per K/V tile of the float32 kernel (``Tf32Cfg<H>::BK``): 16 at
+    h = 256, whose Q planes live in shared memory beside one tile."""
+    return 16 if h > 128 else 32 if h == 128 else 64
 
 
 def _aligned(t: torch.Tensor) -> bool:

@@ -1,10 +1,10 @@
 """Uniform model API: ``build_model(cfg)`` -> ``ModelBundle``.
 
 The bundle exposes the JAX package's entry points (init, train_loss,
-prefill, decode_step, init_cache) on torch tensors.  The dense, moe, ssm
-and hybrid families are ported; the others raise, naming the ROADMAP
-item that ports them.  Everything runs on ``cuda`` unless
-``device="cpu"`` is asked for.
+prefill, decode_step, init_cache) on torch tensors, for every family the
+JAX package builds: dense, moe and vlm (the transformer), ssm, hybrid
+and encdec.  Everything runs on ``cuda`` unless ``device="cpu"`` is
+asked for.
 """
 from __future__ import annotations
 
@@ -15,14 +15,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import hybrid, ssm_lm, transformer
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 from repro_torch.models.params import Specs, init_params, param_count
-
-# families of the JAX package not ported yet -> the ROADMAP item
-PENDING_FAMILIES = {
-    "encdec": "ROADMAP Queue 1 item 9",
-    "vlm": "ROADMAP Queue 1 item 9",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,14 +47,12 @@ def build_model(cfg: ArchConfig,
     ``init(generator)`` makes fresh weights on the generator's device.
     ``moe_strategy`` ("einsum" or "sort") is the MoE family's training
     dispatch; serving always dispatches by einsum, as in the reference."""
-    if cfg.family in PENDING_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet "
-            f"({PENDING_FAMILIES[cfg.family]})")
     families = {"dense": (transformer, transformer.lm_specs),
                 "moe": (transformer, transformer.lm_specs),
+                "vlm": (transformer, transformer.lm_specs),
                 "ssm": (ssm_lm, ssm_lm.ssm_lm_specs),
-                "hybrid": (hybrid, hybrid.hybrid_specs)}
+                "hybrid": (hybrid, hybrid.hybrid_specs),
+                "encdec": (encdec, encdec.encdec_specs)}
     if cfg.family not in families:
         raise ValueError(f"unknown family {cfg.family!r}")
     module, specs_of = families[cfg.family]

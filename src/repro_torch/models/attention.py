@@ -140,6 +140,22 @@ def attention_train(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     return out.reshape(B, S, -1) @ p["wo"]
 
 
+def cross_attention_train(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+                          x: torch.Tensor,
+                          kv_src: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention over the encoder output (no rotary, no
+    mask), by ``gqa_attend`` whatever ``cfg.use_kernels`` says, as in the
+    reference."""
+    B, S, _ = x.shape
+    T = kv_src.shape[1]
+    h = cfg.resolved_head_dim()
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, h)
+    k = (kv_src @ p["wk"]).reshape(B, T, cfg.n_kv_heads, h)
+    v = (kv_src @ p["wv"]).reshape(B, T, cfg.n_kv_heads, h)
+    out = gqa_attend(q, k, v, None, softmax_scale=h ** -0.5)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
 # ---------------------------------------------------------------------------
 # KV cache (decode path)
 # ---------------------------------------------------------------------------

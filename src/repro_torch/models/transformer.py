@@ -1,12 +1,13 @@
-"""Decoder-only transformer LM, dense and MoE families.
+"""Decoder-only transformer LM (dense / MoE / VLM backbones).
 
 Per-layer parameters keep the JAX package's stacked layout (every block
 leaf carries a leading ``n_layers`` axis).  The training layer loop is
 :func:`repro_torch.core.psg.scan` over the layers' views of them, with
 each block checkpointed under ``cfg.remat`` as the reference's
 ``jax.checkpoint``; serving loops over the layers in Python.  The VLM
-branch of the JAX module comes with its family (ROADMAP Queue 1 item 9)
-and raises here.
+family's vision tower is a stub: ``batch["patches"]`` (B, Np, D) of
+precomputed patch embeddings, projected by ``patch_proj`` and prepended
+to the token stream; its loss is over the text positions only.
 """
 from __future__ import annotations
 
@@ -31,13 +32,6 @@ from repro_torch.models.layers import (
 from repro_torch.models.params import P, Specs
 
 
-def _ported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} block is not ported yet (ROADMAP Queue 1 "
-            "item 9)")
-
-
 def stack_specs(specs: Specs, n: int) -> Specs:
     """Add a leading stacked-layer dim to every leaf."""
     out: Specs = {}
@@ -50,7 +44,6 @@ def stack_specs(specs: Specs, n: int) -> Specs:
 
 
 def block_specs(cfg: ArchConfig) -> Specs:
-    _ported(cfg)
     specs: Specs = {
         "attn_norm": P((cfg.d_model,), ("embed",), init="zeros"),
         "attn": attn.attention_specs(cfg),
@@ -68,6 +61,8 @@ def lm_specs(cfg: ArchConfig) -> Specs:
         "embed": embed_specs(cfg),
         "layers": stack_specs(block_specs(cfg), cfg.n_layers),
         "final_norm": P((cfg.d_model,), ("embed",), init="zeros"),
+        **({"patch_proj": P((cfg.d_model, cfg.d_model), ("embed", "embed"))}
+           if cfg.family == "vlm" else {}),
     }
 
 
@@ -111,7 +106,6 @@ def backbone_train(cfg: ArchConfig, params: Dict[str, Any], x: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run all blocks over embedded input x: (B, S, D).  Returns the
     final-normed h and the layers' MoE 3-vectors summed."""
-    _ported(cfg)
     x, auxs = scan(lambda h, p: _block_train(cfg, moe_strategy, h, p), x,
                    unbind_layers(params["layers"], cfg.n_layers),
                    name="layers", remat=cfg.remat)
@@ -119,16 +113,31 @@ def backbone_train(cfg: ArchConfig, params: Dict[str, Any], x: torch.Tensor,
             torch.sum(torch.stack(auxs), dim=0))
 
 
+def _embed_inputs(cfg: ArchConfig, params: Dict[str, Any],
+                  batch: Dict[str, torch.Tensor],
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings, with the VLM family's projected patches
+    prepended."""
+    x = embed_tokens(params["embed"], tokens)
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(x.dtype) @ params["patch_proj"]
+        x = torch.cat([patches, x], dim=1)
+    return x
+
+
 def train_loss(cfg: ArchConfig, params: Dict[str, Any],
                batch: Dict[str, torch.Tensor], moe_strategy: str = "einsum"
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy over ``batch["tokens"]`` (B, S + 1);
     labels below 0 are masked out.  The MoE family adds ``0.01·aux +
-    1e-3·z``.  Returns (loss, metrics)."""
+    1e-3·z``; the VLM family prepends ``batch["patches"]`` and scores the
+    text positions only.  Returns (loss, metrics)."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    x = embed_tokens(params["embed"], inputs)
+    x = _embed_inputs(cfg, params, batch, inputs)
     h, aux = backbone_train(cfg, params, x, moe_strategy)
+    if cfg.family == "vlm":                   # loss over text positions only
+        h = h[:, batch["patches"].shape[1]:]
     mask = (labels >= 0).float()
     loss_sum, count = chunked_cross_entropy(
         params["embed"], h, torch.clamp(labels, min=0), mask, cfg.loss_chunk)
@@ -186,11 +195,10 @@ def _block_prefill(cfg: ArchConfig, x: torch.Tensor, p: Dict[str, Any],
 def prefill(cfg: ArchConfig, params: Dict[str, Any],
             batch: Dict[str, torch.Tensor], max_len: int
             ) -> Tuple[torch.Tensor, LMCache]:
-    """Process the full prompt; returns (last-position logits, primed
-    cache of ``max_len`` positions)."""
-    _ported(cfg)
-    tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], tokens)
+    """Process the full prompt (for the VLM family, the patches and then
+    the tokens); returns (last-position logits, primed cache of
+    ``max_len`` positions)."""
+    x = _embed_inputs(cfg, params, batch, batch["tokens"])
     B, S, _ = x.shape
     ks, vs = [], []
     for i in range(cfg.n_layers):
@@ -210,7 +218,6 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: LMCache,
     """One decode step. tokens: (B, 1) int; returns (logits (B, 1, V),
     the cache one token longer).  Each layer's new K/V is written into the
     cache's buffers in place (``attention_decode``)."""
-    _ported(cfg)
     kv = cache.kv
     x = embed_tokens(params["embed"], tokens)
     for i in range(cfg.n_layers):

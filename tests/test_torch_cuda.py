@@ -220,6 +220,17 @@ FLASH_CASES = [
     # (16/16) and dbrx-132b's GQA (48/8)
     (2, 16, 16, 512, 512, 128, True, torch.float32),
     (1, 48, 8, 512, 512, 128, True, torch.float32),
+    # head dim 256 (gemma-7b): small, ragged GQA, full keys, then its
+    # layer (2, 16/16, h = 256) with S cut to 512, f32 and bf16
+    (1, 2, 2, 128, 128, 256, True, torch.float32),
+    (1, 2, 2, 128, 128, 256, True, torch.bfloat16),
+    (1, 4, 2, 100, 100, 256, True, torch.float32),
+    (2, 2, 2, 64, 128, 256, False, torch.float32),
+    (2, 2, 2, 64, 128, 256, False, torch.bfloat16),
+    (2, 16, 16, 512, 512, 256, True, torch.float32),
+    (2, 16, 16, 512, 512, 256, True, torch.bfloat16),
+    # seamless-m4t-medium's encoder layer: non-causal, (4, 16/16, h = 64)
+    (4, 16, 16, 1024, 1024, 64, False, torch.float32),
 ]
 
 
@@ -393,31 +404,54 @@ def test_ssd_scan_wrapper_refuses_bad_clusters(card, monkeypatch):
     assert sk.ssd_scan.launches == before
 
 
+def smoke_batch(cfg, shape, seed, dev):
+    """Seeded tokens of ``shape`` and, for encdec / vlm, the frontend's
+    (B, frontend_len, d_model) embeddings, on ``dev``."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, shape)).to(dev)}
+    key = {"encdec": "frames", "vlm": "patches"}.get(cfg.family)
+    if key:
+        batch[key] = torch.from_numpy(rng.standard_normal(
+            (shape[0], cfg.frontend_len, cfg.d_model), np.float32)).to(dev)
+    return batch
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b", "gemma-7b",
+                                  "seamless-m4t-medium", "internvl2-2b"])
 def test_smoke_model_loss_through_the_kernels(card, arch):
     """A smoke-size loss through the kernels equals the plain path's.  The
-    hybrid smoke config's 16-wide heads are widened to 32 (two heads), a
-    width the flash kernel is built for."""
+    hybrid, encdec and vlm smoke configs' 16-wide heads are widened to 32
+    (half the heads), a width the flash kernel is built for; gemma's
+    smoke heads are 32 wide already.  One flash launch per self-attention
+    layer (the encoder's non-causal, the decoder's causal)."""
     from repro_torch.configs import get_smoke
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.models import build_model
     from repro_torch.models.hybrid import n_attn_sites
     cfg = get_smoke(arch)
-    if cfg.family == "hybrid":
-        cfg = cfg.replace(n_heads=2, n_kv_heads=2)
+    if cfg.family in ("hybrid", "encdec", "vlm"):
+        cfg = cfg.replace(n_heads=cfg.n_heads // 2,
+                          n_kv_heads=max(cfg.n_kv_heads // 2, 1))
     plain = build_model(cfg)
     kern = build_model(cfg.replace(use_kernels=True))
     params = plain.init(plain.generator(0))
-    toks = torch.from_numpy(np.random.default_rng(5).integers(
-        0, cfg.vocab_size, (2, 65))).to(card)
+    batch = smoke_batch(cfg, (2, 65), 5, card)
     before = (sk.ssd_scan.launches, fk.flash_attention.launches)
-    got = float(kern.train_loss(params, {"tokens": toks})[0])
-    sites = n_attn_sites(cfg) if cfg.family == "hybrid" else 0
+    got = float(kern.train_loss(params, batch)[0])
+    ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    if cfg.family == "ssm":
+        flash = 0
+    elif cfg.family == "hybrid":
+        flash = n_attn_sites(cfg)
+    else:
+        flash = cfg.n_layers + (cfg.enc_layers if cfg.family == "encdec"
+                                else 0)
     assert (sk.ssd_scan.launches - before[0],
-            fk.flash_attention.launches - before[1]) == (cfg.n_layers, sites)
-    want = float(plain.train_loss(params, {"tokens": toks})[0])
+            fk.flash_attention.launches - before[1]) == (ssd, flash)
+    want = float(plain.train_loss(params, batch)[0])
     assert np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want)
 
 
@@ -457,7 +491,8 @@ def test_smoke_engine_on_the_card_equals_the_cpu(card, arch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "seamless-m4t-medium",
+                                  "internvl2-2b"])
 def test_smoke_train_step_on_the_card_equals_the_cpu(card, arch):
     """One smoke train step on the card, eager and profiled (the traced
     graph through the fenced interpreter), equals the CPU's step on the
@@ -471,8 +506,7 @@ def test_smoke_train_step_on_the_card_equals_the_cpu(card, arch):
     from repro_torch.optim.tree import leaves, tree_map
     from repro_torch.training import TrainState, make_train_step
     cfg = get_smoke(arch)
-    toks = torch.from_numpy(np.random.default_rng(9).integers(
-        0, cfg.vocab_size, (4, 65)))
+    host = smoke_batch(cfg, (4, 65), 9, "cpu")
     cpu = build_model(cfg, device="cpu")
     params = cpu.init(cpu.generator(0))
     runs = {}
@@ -482,7 +516,7 @@ def test_smoke_train_step_on_the_card_equals_the_cpu(card, arch):
                            torch.zeros((), dtype=torch.int32, device=dev))
         step = make_train_step(build_model(cfg, device=dev), RunConfig(),
                                constant(1e-3))
-        batch = {"tokens": toks.to(dev)}
+        batch = {k: v.to(dev) for k, v in host.items()}
         runs[str(dev)] = step(state, batch)
         if dev == card:
             prof = GraphProfiler(step, (state, batch), sample_every=1)

@@ -18,8 +18,8 @@ from repro_torch.kernels.flash_attention import ops, ref
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 # (B, nq, nkv, Sq, Sk, h, causal, bq, bk, dtype): the reference's SWEEP
-# (tests/test_kernels.py:21-29) plus a GQA case with group 4 and an MQA
-# case with a short, full key axis
+# (tests/test_kernels.py:21-29) plus a GQA case with group 4, an MQA
+# case with a short, full key axis and the h = 256 instance
 CASES = [
     (1, 2, 2, 64, 64, 32, True, 32, 32, "float32"),
     (2, 4, 2, 128, 128, 64, True, 64, 64, "float32"),
@@ -29,6 +29,11 @@ CASES = [
     (1, 4, 2, 64, 64, 64, True, 64, 64, "bfloat16"),
     (2, 8, 2, 64, 64, 32, True, 32, 32, "float32"),        # GQA, group 4
     (1, 4, 1, 32, 64, 64, False, 32, 32, "float32"),       # MQA, full
+    # head dim 256 (gemma-7b), causal and full, float32 and bfloat16
+    (1, 2, 2, 128, 128, 256, True, 64, 64, "float32"),
+    (2, 2, 1, 64, 128, 256, False, 64, 64, "float32"),
+    (1, 2, 2, 128, 128, 256, True, 64, 64, "bfloat16"),
+    (1, 2, 2, 64, 128, 256, False, 64, 64, "bfloat16"),
 ]
 
 

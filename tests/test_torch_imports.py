@@ -78,7 +78,11 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core",
            "repro_torch.configs.moonshot_v1_16b_a3b",
            "repro_torch.configs.dbrx_132b", "repro_torch.models.moe",
            "repro_torch.serving", "repro_torch.serving.engine",
-           "repro_torch.launch", "repro_torch.launch.serve"]
+           "repro_torch.launch", "repro_torch.launch.serve",
+           "repro_torch.configs.nemotron_4_15b", "repro_torch.configs.yi_6b",
+           "repro_torch.configs.gemma_7b",
+           "repro_torch.configs.seamless_m4t_medium",
+           "repro_torch.configs.internvl2_2b", "repro_torch.models.encdec"]
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():
@@ -124,6 +128,38 @@ def test_model_entry_points_run_with_jax_and_repro_blocked():
                                  generator=torch.Generator().manual_seed(0))
             loss, _ = m.train_loss(p, {"tokens": toks})
             logits, cache = m.prefill(p, {"tokens": toks[:, :8]}, 16)
+            logits, cache = m.decode_step(p, cache,
+                                          logits[:, -1].argmax(-1)[:, None])
+            assert torch.isfinite(loss)
+            assert logits.shape == (2, 1, cfg.vocab_size)
+        print("ok")
+    """)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_zoo_entry_points_run_with_jax_and_repro_blocked():
+    """The encoder-decoder and the VLM with their frontends' embeddings,
+    and gemma's h = 32 smoke heads, through the kernel path on the CPU."""
+    out = _run("""
+        import torch
+        from repro_torch import build_model
+        from repro_torch.configs import ARCHS, get_smoke
+        assert len(ARCHS) == 10
+        g = torch.Generator().manual_seed(0)
+        for arch, key in (("seamless-m4t-medium", "frames"),
+                          ("internvl2-2b", "patches"), ("gemma-7b", None)):
+            cfg = get_smoke(arch).replace(use_kernels=True)
+            m = build_model(cfg, device="cpu")
+            p = m.init(m.generator(0))
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 17),
+                                             generator=g)}
+            if key:
+                batch[key] = torch.randn(2, cfg.frontend_len, cfg.d_model,
+                                         generator=g)
+            loss, _ = m.train_loss(p, batch)
+            short = dict(batch, tokens=batch["tokens"][:, :8])
+            logits, cache = m.prefill(p, short, 32)
             logits, cache = m.decode_step(p, cache,
                                           logits[:, -1].argmax(-1)[:, None])
             assert torch.isfinite(loss)

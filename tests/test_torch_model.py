@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import get_smoke as jax_smoke
 from repro.models import layers as jl
 from repro.models.api import build_model as jax_build
@@ -253,13 +254,13 @@ def test_full_config_is_tinyllama():
             cfg.resolved_head_dim(), cfg.d_ff, cfg.vocab_size) == \
         (22, 2048, 32, 4, 64, 5632, 32000)
     assert cfg.pdtype() == cfg.cdtype() == torch.float32
-    assert ARCHS == [ARCH, "mamba2-130m", "zamba2-2.7b",
-                     "moonshot-v1-16b-a3b", "dbrx-132b"]
-    with pytest.raises(KeyError, match="not ported yet"):
-        get("yi-6b")
+    assert ARCHS == JAX_ARCHS            # all ten, in the reference's order
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get("llama-3-8b")
 
 
-@pytest.mark.parametrize("family", ["encdec", "vlm"])
+@pytest.mark.parametrize("family", ["retnet", "rwkv"])
 def test_build_model_refuses_families_not_ported(family):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every family of the JAX package builds; any other is refused."""
+    with pytest.raises(ValueError, match="unknown family"):
         build_model(get_smoke(ARCH).replace(family=family), device="cpu")

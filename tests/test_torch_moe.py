@@ -192,8 +192,14 @@ def test_init_gives_the_reference_shapes(pair):
 
 
 def test_vlm_still_raises():
+    """The VLM branch is ported (its specs add ``patch_proj``, its blocks
+    are dense); a VLM batch without its patch embeddings still raises."""
     from repro_torch.models import transformer
     cfg = get_smoke("moonshot-v1-16b-a3b").replace(family="vlm")
-    for fn in (transformer.block_specs, transformer.lm_specs):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(cfg)
+    assert "mlp" in transformer.block_specs(cfg)
+    assert transformer.lm_specs(cfg)["patch_proj"].shape == \
+        (cfg.d_model, cfg.d_model)
+    tm = build_model(cfg, device="cpu")
+    with pytest.raises(KeyError, match="patches"):
+        tm.train_loss(tm.init(tm.generator(0)),
+                      {"tokens": torch.zeros((1, 9), dtype=torch.long)})
