@@ -110,7 +110,25 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    causal in the decoder); one profiled loss of gemma and of seamless;
    each model's 128-token prompts prefilled and greedy-decoded for 16
    tokens, twice; one AdamW train step of internvl2 and of seamless
-   through ``make_train_step``, finite and with the plain loss.
+   through ``make_train_step``, finite and with the plain loss;
+13. trainer — ``Trainer`` on tinyllama-1.1b at full width and depth
+   (random f32 weights from seed 0, tokens (4, 2049) from the data
+   pipeline): six steps with ScalAna on (every second step sampled
+   through the traced graph), the step times, the losses, the PSG, the
+   storage and the overhead, and the report's abnormal detect on the card
+   (one ``ab_fused`` launch) equal to numpy's; then ``python -m
+   repro_torch.launch.train --smoke --ckpt-dir ... --report`` for
+   tinyllama and mamba2 (one ``ab_fused`` launch each); then 8 smoke
+   steps against 4 + 4 across a checkpoint, within 1e-5, in a temporary
+   directory that is deleted;
+14. scaling — ``repro_torch.launch.scaling_profile`` at scales 1, 2 and 4
+   (12 smoke steps, each scale its worker processes: NCCL for one rank,
+   Gloo for the ranks that time-share the card; detection in this
+   process): every scale's JSON with its ``n_procs``, congruent PSGs,
+   exactly one Comm all-reduce of 4 x (parameters + 1) bytes, each
+   scale's median step and all-reduce times, ``detect_non_scalable``
+   (``ns_fused``) and ``detect_abnormal`` (``ab_fused``) on the card
+   equal to numpy's, the non-scalable vertices and a root-cause path.
 
 The detection kernels' launch counts are reset just before phase 3 and
 read just after phase 4, again just before phase 7's detect and just
@@ -121,7 +139,8 @@ flash count just before phase 10's models and just after (added to the
 JSON line's), every count just before phase 11 and just after (the
 engine reaches no kernel, and the phase fails if one is launched), and
 the flash count just before phase 12's models and just after (added to
-the JSON line's).
+the JSON line's), and the detection counts just before each detect of
+phases 13 and 14 and just after (added to the JSON line's).
 It exits non-zero, printing no
 result, when any check fails, when there is no CUDA card, or when the
 port is not next to it.  The last line is ``{"ok": true, "device":
@@ -130,6 +149,7 @@ port is not next to it.  The last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -142,10 +162,6 @@ ROOT = Path(__file__).resolve().parent
 P, V, S, K = 65536, 56, 4, 64
 K_WIDE = 1500                   # > 1024 candidates in a column's list
 N_TOP = 20
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
-FP_OPS_PER_S = 67e12            # float32 outside the tensor cores (same)
-TF32_OPS_PER_S = 494.7e12       # dense TF32 on the tensor cores (same)
-BF16_OPS_PER_S = 989e12         # dense bf16 on the tensor cores (same)
 L2_FLUSH_BYTES = 80 << 20       # written before each cold-L2 timing (> 50 MB)
 TOL = {"float64": 1e-12, "float32": 1e-4}
 BANK_PROCS = 2048
@@ -337,8 +353,18 @@ def cuda_ms_cold(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = FP_OPS_PER_S):
-    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+def h100():
+    """The H100 SXM data-sheet figures, held by the port's
+    ``launch/mesh.py`` (importable once ``main`` has found the port)."""
+    from repro_torch.launch import mesh
+    return mesh
+
+
+def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = 0.0):
+    """The larger of the bytes over the HBM rate and the operations over
+    ``ops_per_s`` (float32 on the CUDA cores by default)."""
+    tb = n_bytes / h100().HBM_BANDWIDTH
+    to = n_ops / (ops_per_s or h100().PEAK_FLOPS_FP32)
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
@@ -349,8 +375,9 @@ def flash_bound(q, k, v, causal_flops: int):
     the bound of f32 on the CUDA cores."""
     f32 = q.element_size() == 4
     n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    design = (bound_ms(n_bytes, 3 * causal_flops, TF32_OPS_PER_S) if f32
-              else bound_ms(n_bytes, causal_flops, BF16_OPS_PER_S))
+    design = (bound_ms(n_bytes, 3 * causal_flops, h100().PEAK_FLOPS_TF32)
+              if f32 else
+              bound_ms(n_bytes, causal_flops, h100().PEAK_FLOPS_BF16))
     return design, bound_ms(n_bytes, causal_flops)
 
 
@@ -973,7 +1000,7 @@ def ssd_bound(case):
                    + B * H * N * Pd)
     tri = Q * (Q + 1) // 2
     macs = B * (S // Q) * (tri * N + H * (tri * Pd + 2 * Q * N * Pd))
-    return (bound_ms(n_bytes, 3 * 2 * macs, TF32_OPS_PER_S),
+    return (bound_ms(n_bytes, 3 * 2 * macs, h100().PEAK_FLOPS_TF32),
             bound_ms(n_bytes, 2 * macs))
 
 
@@ -1647,7 +1674,7 @@ def phase_moe(card: str) -> int:
             check(torch.equal(toks_a, toks_b), f"{arch}: greedy decode is "
                   "not deterministic")
             expert = cfg.n_experts * cfg.d_model * cfg.d_ff * 3 * 4 * layers
-            floor = expert / HBM_BYTES_PER_S * 1e3
+            floor = expert / h100().HBM_BANDWIDTH * 1e3
             print(f"  {arch} prefill 2 x {PROMPT} into {MAX_LEN}, "
                   f"{MOE_DECODE} greedy tokens twice: identical; decode step "
                   f"{statistics.median(steps):.3f} ms (median of "
@@ -1913,6 +1940,249 @@ def phase_zoo(card: str) -> int:
     return want
 
 
+# -- phase 13: the Trainer, the launcher and resume ------------------------
+
+TRAIN_ARCH, TRAIN_SHAPE, TRAIN_STEPS = "tinyllama-1.1b", (2048, 4), 6
+CLI_ARCHS = ("tinyllama-1.1b", "mamba2-130m")
+RESUME_TOL = 1e-5                 # tests/test_elastic.py:29-49
+
+
+def phase_trainer(card: str) -> int:
+    """[trainer]: ``Trainer`` on tinyllama-1.1b at full width and depth
+    (random f32 weights from seed 0, tokens (4, 2049) from the data
+    pipeline), six steps with ScalAna on (every second step sampled); the
+    measured times replayed over 64 processes with the first loop twice
+    as slow at one of them, and the report's abnormal detect on that PPG
+    on the card equal to numpy's and naming the slowed loop; then
+    ``python -m repro_torch.launch.train --smoke`` for two families with
+    a checkpoint directory and ``--report`` (one process: its detect
+    launches ``ab_fused`` but can flag nothing, so only the launch is
+    checked); then 8 smoke steps against 4 + 4 across a checkpoint.
+    Returns the ``ab_fused`` launches of the detects."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core import backtrack, detect_abnormal, render_report
+    from repro_torch.core.inject import schedule, simulate
+    from repro_torch.kernels.detect_fused import kernel
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import Trainer
+
+    run = RunConfig(arch=TRAIN_ARCH, total_steps=TRAIN_STEPS,
+                    warmup_steps=1, learning_rate=1e-4, scalana=True,
+                    scalana_sample_every=2)
+    cfg = get(TRAIN_ARCH)
+    tr = Trainer(run, arch_cfg=cfg,
+                 shape=ShapeConfig("card", *TRAIN_SHAPE, "train"))
+    check(tr.device.type == "cuda", f"trainer: device {tr.device}")
+    t0 = time.perf_counter()
+    tr.train(num_steps=TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    losses = [m["loss"] for m in tr.metrics_log if "loss" in m]
+    check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
+          f"trainer: losses {losses}")
+    prof = tr.profiler
+    psg, perf, storage = tr.scalana_artifacts()
+    oh = prof.overhead_estimate()
+    print(f"  {TRAIN_ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{tr.model.param_count()} params), tokens "
+          f"{tr.dataset.local_batch} x {TRAIN_SHAPE[0] + 1}: {TRAIN_STEPS} "
+          f"steps in {wall:.1f} s (trace {prof.trace_s:.2f} s); loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}  [{card}]")
+    print(f"  steps (host clock, synchronised): "
+          f"{[round(t, 4) for t in tr.step_wall_times]} s; overhead_frac "
+          f"{oh['overhead_frac']:.4f} (base {oh['base_step_s']:.4f} s, "
+          f"sampled {oh['sampled_step_s']:.4f} s); PSG {psg.stats()}; "
+          f"storage {storage} B vs full trace {prof.full_trace_bytes()} B")
+    check(prof.sampled_steps == TRAIN_STEPS // 2,
+          f"trainer: {prof.sampled_steps} sampled steps")
+    # one process cannot be abnormal (a time above 1.3x the median over
+    # processes): replay the measured times over DIAG_PROCS processes,
+    # the first loop twice as slow at DIAG_STRAGGLER
+    target = next(v for v in schedule(psg) if psg.vertices[v].kind == "Loop")
+    ppg = simulate(psg, DIAG_PROCS, prof.base_times(),
+                   inject={(DIAG_STRAGGLER, target): perf[target].time}).ppg
+    del tr, prof
+    torch.cuda.empty_cache()
+    kernel.reset_launches()
+    ab = detect_abnormal(ppg, abnorm_thd=run.abnorm_thd, backend="torch",
+                         device="cuda")
+    launches = kernel.ab_fused.launches
+    check(launches == 1, f"trainer: ab_fused launches {launches}")
+    check(ab == detect_abnormal(ppg, abnorm_thd=run.abnorm_thd,
+                                backend="numpy"),
+          "trainer: abnormal differs from numpy")
+    check(any((a.proc, a.vid) == (DIAG_STRAGGLER, target) for a in ab),
+          f"trainer: the slowed loop is not flagged: "
+          f"{[(a.proc, a.vid) for a in ab]}")
+    report = render_report(ppg, [], ab, backtrack(ppg, [], ab))
+    check("scaling-loss report" in report, "trainer: no report")
+    print(f"  report over {DIAG_PROCS} replayed processes, v{target} "
+          f"{psg.vertices[target].name} twice as slow at p{DIAG_STRAGGLER}: "
+          f"{len(ab)} abnormal = numpy's, the slowed loop among them; "
+          f"ab_fused launches {launches}, {len(report.splitlines())} lines")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        for arch in CLI_ARCHS:
+            ckpt = f"{tmp}/{arch}"
+            out = io.StringIO()
+            kernel.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                launch_train.main(["--arch", arch, "--smoke", "--steps", "6",
+                                   "--sample-every", "2", "--ckpt-dir", ckpt,
+                                   "--report"])
+            secs = time.perf_counter() - t0
+            text = out.getvalue()
+            check(f"[train] {arch} (smoke) on cuda" in text
+                  and "scaling-loss report" in text,
+                  f"trainer: launcher output {text[:400]!r}")
+            # one process: the launch is checked, not its (empty) result
+            check(kernel.ab_fused.launches == 1,
+                  f"trainer: launcher ab_fused {kernel.ab_fused.launches}")
+            launches += kernel.ab_fused.launches
+            check(sorted(os.listdir(ckpt)) == ["step_3", "step_6"],
+                  f"trainer: checkpoints {os.listdir(ckpt)}")
+            print("  " + " | ".join(line for line in text.splitlines()
+                                    if line.startswith(("[train]",
+                                                        "[scalana]")))
+                  + f"; {secs:.1f} s with checkpoints and the report")
+        smoke = dict(arch_cfg=get_smoke(TRAIN_ARCH),
+                     shape=ShapeConfig("smoke", 64, 4, "train"))
+
+        def trainer(d):
+            return Trainer(RunConfig(arch=TRAIN_ARCH, total_steps=8,
+                                     warmup_steps=2, learning_rate=1e-3,
+                                     checkpoint_dir=d, checkpoint_every=100,
+                                     scalana=False), **smoke)
+
+        once = trainer(f"{tmp}/once")
+        once.train(num_steps=8)
+        trainer(f"{tmp}/resume").train(num_steps=4)
+        resumed = trainer(f"{tmp}/resume")
+        resumed.train(num_steps=4)
+        want = [m["loss"] for m in once.metrics_log][4:]
+        got = [m["loss"] for m in resumed.metrics_log]
+        err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        check(resumed.metrics_log[0]["step"] == 4 and err <= RESUME_TOL,
+              f"trainer: resumed {got} vs uninterrupted {want}")
+        print(f"  resume at the smoke config: 4 + 4 steps across a "
+              f"checkpoint = 8 uninterrupted, largest relative difference "
+              f"{err:.3g} (tol {RESUME_TOL})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+# -- phase 14: the multi-scale profiling workflow ------------------------
+
+# mamba2-130m at its published width and depth (remat off, as the
+# reference's workers run), global batch 4 x 2048 tokens at every scale
+SCALE_ARCH, SCALES, SCALE_STEPS = "mamba2-130m", (1, 2, 4), 12
+SCALE_SHAPE, SCALE_TIMEOUT_S = (2048, 4), 300       # (seq, global batch)
+
+
+def phase_scaling(card: str):
+    """[scaling]: ``repro_torch.launch.scaling_profile`` at scales 1, 2 and
+    4 on the card (each scale its worker processes, one backend for the
+    series, detection here): every scale's JSON, congruent PSGs, one
+    Comm all-reduce of the model's gradients and loss,
+    ``detect_non_scalable`` and ``detect_abnormal`` on the card equal to
+    numpy's, a root-cause path.  Returns the (``ab_fused``,
+    ``ns_fused``) launches of the detect."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import COMM, render_report
+    from repro_torch.kernels.detect_fused import kernel
+    from repro_torch.launch import scaling_profile as sp
+    from repro_torch.launch.mesh import choose_backend
+    from repro_torch.models import build_model
+
+    backend = choose_backend("cuda", max(SCALES))
+    seq, batch = SCALE_SHAPE
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scaling_")
+    try:
+        for n in SCALES:
+            t0 = time.perf_counter()
+            sp.run_scale(n, arch=SCALE_ARCH, full=True, steps=SCALE_STEPS,
+                         batch=batch, seq=seq, sample_every=4, out_dir=tmp,
+                         device="cuda", timeout_s=SCALE_TIMEOUT_S,
+                         backend=backend)
+            print(f"  scale {n}: {n} worker processes, backend {backend}, "
+                  f"{time.perf_counter() - t0:.1f} s (process start and "
+                  f"the trace included)")
+        psgs, series, raws = sp.load_series(SCALE_ARCH, SCALES, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    nparams = build_model(get(SCALE_ARCH), device="cpu").param_count()
+    for n in SCALES:
+        raw = raws[n]
+        comms = psgs[n].by_kind(COMM)
+        check(len(comms) == 1 and comms[0].comm_kind == "all_reduce"
+              and comms[0].comm_bytes == 4 * (nparams + 1)
+              and comms[0].meta["replica_groups"] == [list(range(n))],
+              f"scaling: scale {n} Comm vertices "
+              f"{[(v.comm_kind, v.comm_bytes, v.meta) for v in comms]}")
+        check(raw["backend"] == backend and raw["config"] == "full"
+              and raw["params"] == nparams,
+              f"scaling: scale {n} ran {raw['backend']}, {raw['config']}, "
+              f"{raw['params']} params")
+        t = series[n].times_matrix()[:, comms[0].vid]
+        # a ring all-reduce sends 2 (n - 1) / n of the bucket from each
+        # rank, at half the NVLink total (one direction)
+        ring = 2 * (n - 1) / n * comms[0].comm_bytes
+        print(f"  scale {n} ({backend}): median step "
+              f"{1e3 * statistics.median(raw['step_times']):.3f} ms (rank 0,"
+              f" {[round(1e3 * x, 3) for x in raw['step_times']]}), "
+              f"all_reduce v{comms[0].vid} {1e3 * t.mean():.3f} ms mean over"
+              f" ranks (max {1e3 * t.max():.3f}; NVLink ring bound with a "
+              f"card a rank {1e3 * ring / (h100().NVLINK_BANDWIDTH / 2):.3f}"
+              f" ms), {comms[0].comm_bytes:.0f} B; overhead_frac "
+              f"{raw['overhead'].get('overhead_frac', 0.0):.4f}; trace "
+              f"{raw['trace_s']:.2f} s (rank 0); peak memory "
+              f"{sum(raw['peak_bytes']) / 1e9:.2f} GB over the ranks  "
+              f"[{card}]")
+    kernel.reset_launches()
+    ns, ab, paths = sp.diagnose(series, backend="torch", device="cuda")
+    launches = (kernel.ab_fused.launches, kernel.ns_fused.launches)
+    check(launches[0] >= 1 and launches[1] >= 1,
+          f"scaling: launches ab_fused {launches[0]}, ns_fused "
+          f"{launches[1]}")
+    ns_np, ab_np, paths_np = sp.diagnose(series, backend="numpy")
+    check([d.vid for d in ns] == [d.vid for d in ns_np]
+          and all(abs(a.slope - b.slope) <= 1e-12 * max(abs(b.slope), 1.0)
+                  and abs(a.share - b.share) <= 1e-12 * max(abs(b.share), 1.0)
+                  for a, b in zip(ns, ns_np)),
+          "scaling: non-scalable differs from numpy")
+    check(ab == ab_np, "scaling: abnormal differs from numpy")
+    check([p.nodes for p in paths] == [p.nodes for p in paths_np],
+          "scaling: paths differ from numpy")
+    check(bool(ns) and bool(paths),
+          f"scaling: {len(ns)} non-scalable, {len(paths)} paths")
+    top = series[max(series)]
+    print("  non-scalable: " + ", ".join(
+        f"v{d.vid} {d.name} slope {d.slope:+.2f} share {100 * d.share:.1f}%"
+        for d in ns))
+    print(f"  abnormal at scale {max(SCALES)}: " + (", ".join(
+        f"v{a.vid} p{a.proc} {a.name} x{a.ratio:.2f}" for a in ab)
+        or "none"))
+    print("  root-cause path 0 [" + paths[0].start_reason + "]: " + " <- ".join(
+        f"p{p} v{v} {top.psg.vertices[v].name}" for p, v in paths[0].nodes))
+    print(f"  ns_fused launches {launches[1]}, ab_fused {launches[0]}; equal "
+          f"to numpy; report {len(render_report(top, ns, ab, paths).splitlines())}"
+          f" lines; {max(SCALES)} ranks share {torch.cuda.device_count()} "
+          f"card(s)")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2081,6 +2351,23 @@ def main() -> int:
         launches["flash_attention"] += got
         print(f"[zoo] flash launches {got}; phase wall time "
               f"{time.perf_counter() - t_zoo:.1f} s  [{card}]")
+        torch.cuda.empty_cache()
+        t_train = time.perf_counter()
+        print(f"[trainer] Trainer on {TRAIN_ARCH} at full width and depth, "
+              f"the launcher, resume; {card}")
+        launches["ab_fused"] += phase_trainer(card)
+        print(f"[trainer] phase wall time "
+              f"{time.perf_counter() - t_train:.1f} s  [{card}]")
+        torch.cuda.empty_cache()
+        t_scale = time.perf_counter()
+        print(f"[scaling] scaling_profile at scales {SCALES}, {SCALE_ARCH} "
+              f"at full width and depth, global batch {SCALE_SHAPE[1]} x "
+              f"{SCALE_SHAPE[0] + 1} tokens, {SCALE_STEPS} steps; {card}")
+        ab_n, ns_n = phase_scaling(card)
+        launches["ab_fused"] += ab_n
+        launches["ns_fused"] += ns_n
+        print(f"[scaling] phase wall time "
+              f"{time.perf_counter() - t_scale:.1f} s  [{card}]")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

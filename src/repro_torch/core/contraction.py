@@ -86,6 +86,7 @@ def contract(psg: PSG, max_loop_depth: int = 10,
                                     parent=new_parent, depth=depth)
                 nv.comm_kind, nv.comm_bytes = v.comm_kind, v.comm_bytes
                 nv.p2p_pairs = list(v.p2p_pairs)
+                nv.meta = dict(v.meta)      # replica_groups
                 mapping[cid] = nv.vid
         flush()
 

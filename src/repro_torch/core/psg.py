@@ -27,9 +27,12 @@ its iterations (``trip_count`` times the body when the iterations are
 alike, as ``_rollup`` does in the JAX package).  Data edges are def-use
 edges between vertices at one nesting level, with program order where a
 vertex reads nothing made at its level; control edges join a loop to
-its children.  Collectives would become Comm vertices here; none are
-traced yet, so a caller attaches them (see
-``examples/diagnose_scaling_loss_torch.py``).
+its children.  A functional collective (``torch.distributed.
+_functional_collectives``: the data-parallel step's gradient all-reduce)
+is a Comm vertex, as a collective primitive of a jaxpr is in the JAX
+package: ``comm_kind`` in the reference's names, ``comm_bytes`` its
+input's bytes, ``meta["replica_groups"]`` its group's ranks; the
+``wait_tensor`` that completes it is folded into it.
 
 One trace at a time: :func:`trace` is not reentrant.
 """
@@ -47,7 +50,7 @@ import torch.fx.traceback as fx_traceback
 from torch.overrides import TorchFunctionMode
 
 from repro_torch.core import costs
-from repro_torch.core.graph import COMP, LOOP, PSG, ROOT, Vertex
+from repro_torch.core.graph import COMM, COMP, LOOP, PSG, ROOT, Vertex
 
 LOOP_SCOPE = "scalana.loop:"
 ITER_SCOPE = "scalana.iter:"
@@ -299,6 +302,41 @@ def top_level_order(psg: PSG) -> List[int]:
 _MARKERS = ("_record_function_enter", "_record_function_exit")
 Item = Tuple[torch.fx.Node, str, Tuple[Frame, ...]]
 
+# functional collective -> (the reference's comm_kind, group-name argument)
+COLLECTIVES = {"all_reduce": ("all_reduce", 2),
+               "all_gather_into_tensor": ("all_gather", 2),
+               "reduce_scatter_tensor": ("reduce_scatter", 3),
+               "all_to_all_single": ("all_to_all", 3)}
+_C10D = "_c10d_functional"
+
+
+def _collective(node: torch.fx.Node) -> Optional[Tuple[str, int]]:
+    """(comm_kind, group argument) of a functional collective node."""
+    if getattr(node.target, "namespace", None) != _C10D:
+        return None
+    return COLLECTIVES.get(costs.op_name(node))
+
+
+def _waited(node: torch.fx.Node) -> Optional[torch.fx.Node]:
+    """The collective a ``wait_tensor`` node completes, or None."""
+    if (getattr(node.target, "namespace", None) == _C10D
+            and costs.op_name(node) == "wait_tensor"):
+        return _producer(node.args[0])
+    return None
+
+
+def _group_ranks(name: str) -> List[int]:
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return [int(r) for r in
+            dist.get_process_group_ranks(_resolve_process_group(name))]
+
+
+def _comm_bytes(node: torch.fx.Node) -> float:
+    """The collective's input bytes (``_comm_bytes`` of the JAX package)."""
+    t = node.args[0].meta["val"]
+    return float(t.numel() * t.element_size())
+
 
 def _is_vertex(node: torch.fx.Node) -> bool:
     """An ATen op of the program (not I/O, a tuple pick or a profiler
@@ -350,11 +388,15 @@ class _Builder:
         while i < len(items):
             node, src, path = items[i]
             j = i + 1
+            coll = _waited(node) if not path else None
+            if coll in var_def:                # folded into its Comm vertex
+                var_def[node] = var_def[coll]
+                if depth == 0:
+                    self.top[node] = var_def[coll]
+                i = j
+                continue
             if not path:
-                v = self.psg.new_vertex(COMP, costs.op_name(node), source=src,
-                                        parent=parent, depth=depth)
-                v.prims = [v.name]
-                v.flops, v.bytes = self.cost(node)
+                v = self._vertex(node, src, parent, depth)
             else:
                 while j < len(items) and items[j][2][:1] and \
                         items[j][2][0][:2] == path[0][:2]:
@@ -378,6 +420,23 @@ class _Builder:
             prev = v.vid
             i = j
 
+    def _vertex(self, node: torch.fx.Node, src: str, parent: int,
+                depth: int) -> Vertex:
+        comm = _collective(node)
+        if comm is None:
+            v = self.psg.new_vertex(COMP, costs.op_name(node), source=src,
+                                    parent=parent, depth=depth)
+            v.prims = [v.name]
+            v.flops, v.bytes = self.cost(node)
+            return v
+        kind, group_arg = comm
+        v = self.psg.new_vertex(COMM, costs.op_name(node), source=src,
+                                parent=parent, depth=depth)
+        v.comm_kind = kind
+        v.comm_bytes = _comm_bytes(node)
+        v.meta["replica_groups"] = [_group_ranks(node.args[group_arg])]
+        return v
+
     def _loop(self, run: List[Item], parent: int, depth: int) -> Vertex:
         inst, backward, _ = run[0][2][0]
         name, src = self.tr.loops[inst]
@@ -392,4 +451,6 @@ class _Builder:
         cs = [self.cost(n) for n, _, _ in run]
         v.flops = float(sum(c[0] for c in cs))
         v.bytes = float(sum(c[1] for c in cs))
+        v.comm_bytes = float(sum(_comm_bytes(n) for n, _, _ in run
+                                 if _collective(n) is not None))
         return v

@@ -5,8 +5,9 @@ flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`) is
 the training path's drop-in behind ``cfg.use_kernels``.
 
 The JAX package's sharding hints (``logical_constraint``,
-``weight_constraint``) are identities on one card and are left out; they
-come back with the launch layer (ROADMAP Queue 1 item 10).
+``weight_constraint``) are identities under a data-parallel mesh and are
+left out; they come back with tensor parallelism (ROADMAP Queue 1 item
+10b).
 """
 from __future__ import annotations
 

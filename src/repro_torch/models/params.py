@@ -3,8 +3,8 @@
 Each model declares its parameters once as a (possibly nested) dict of
 ``P(shape, logical_axes, init)``; from that single source initialization
 and parameter counts are derived, consistent with each other.  The
-logical axis names are kept for the launch layer (sharding is not ported
-yet, ROADMAP Queue 1 item 10) and for the fan-in rule below.
+logical axis names give the launch layer its partition specs
+(:func:`param_specs_tree`) and the fan-in rule below its dims.
 
 Per-layer leaves keep the JAX package's stacked layout: one tensor with
 a leading ``n_layers`` axis per leaf; the layer loop takes views of it.
@@ -17,6 +17,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.axes import spec_for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,12 +76,23 @@ def init_params(specs: Specs, generator: torch.Generator,
     JAX package's; the values are not (the generators differ), so parity
     tests carry the JAX parameters over with
     :func:`repro_torch.convert.params_from_reference`."""
+    return _map_specs(specs, lambda spec: _init_leaf(generator, spec, dtype,
+                                                     generator.device))
+
+
+def param_specs_tree(specs: Specs) -> Dict[str, Any]:
+    """PartitionSpec tree (resolved against the active mesh/rules)."""
+    return _map_specs(specs, lambda spec: spec_for(spec.axes, spec.shape))
+
+
+def _map_specs(specs: Specs, fn) -> Dict[str, Any]:
+    """``fn(spec)`` for each leaf spec, in sorted path order, as a tree."""
     out: Dict[str, Any] = {}
     for path, spec in _walk(specs):
         node = out
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = _init_leaf(generator, spec, dtype, generator.device)
+        node[path[-1]] = fn(spec)
     return out
 
 

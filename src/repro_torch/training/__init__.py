@@ -1,5 +1,5 @@
-"""Training on torch: the pure train step (``make_train_step``) and its
-state (``TrainState``)."""
-from repro_torch.training.trainer import TrainState, make_train_step
+"""Training on torch: the pure train step (``make_train_step``), its
+state (``TrainState``) and the training loop (``Trainer``)."""
+from repro_torch.training.trainer import Trainer, TrainState, make_train_step
 
-__all__ = ["TrainState", "make_train_step"]
+__all__ = ["Trainer", "TrainState", "make_train_step"]

@@ -595,3 +595,173 @@ def test_monitor_steady_cycle_on_the_card(card):
         assert view.last_upload_rows == 16
         assert dict(ops.launch_counts) == {"abnormal": 1}
         assert report_key(rep) == report_key(ref.poll())
+
+
+def _smoke_trainer(dev, ckpt="", steps=4, scalana=True):
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.training import Trainer
+    run = RunConfig(total_steps=8, warmup_steps=2, learning_rate=1e-3,
+                    checkpoint_dir=ckpt, checkpoint_every=100,
+                    scalana=scalana, scalana_sample_every=2)
+    return Trainer(run, arch_cfg=get_smoke("tinyllama-1.1b"),
+                   shape=ShapeConfig("smoke", 32, 4, "train"), device=dev)
+
+
+@pytest.mark.cuda
+def test_trainer_smoke_steps_on_the_card(card, tmp_path):
+    """From the same initial state, the Trainer on the card with ScalAna on
+    (every second step through the fenced replay) gives the losses of the
+    card Trainer without it within 1e-5 relative over four steps, and its
+    first loss is the CPU's within 1e-5 (later steps are not held to the CPU: AdamW's
+    first step moves a weight by about lr whatever the size of its
+    gradient, so a near-zero gradient computed in another order moves it
+    differently; tests/test_torch_train.py); 4 + 4 steps across a
+    checkpoint equal 8 uninterrupted within 1e-5; the report's abnormal
+    detect on the card, over the measured times replayed at 8 processes
+    with one loop slowed at one of them, is one ``ab_fused`` launch equal
+    to numpy's that flags the slowed loop."""
+    from repro_torch.core import detect_abnormal
+    from repro_torch.core.inject import schedule, simulate
+    from repro_torch.kernels.detect_fused import kernel
+    from repro_torch.training.trainer import state_from_tree, state_to_tree
+    runs = {"cpu": _smoke_trainer("cpu"), "card": _smoke_trainer(card),
+            "eager": _smoke_trainer(card, scalana=False)}
+    assert runs["card"].device.type == "cuda"
+    # the CPU's initial state on every device (a card generator draws
+    # other numbers than the CPU's)
+    start = state_to_tree(runs["cpu"].init_state())
+    losses = {}
+    for name, tr in runs.items():
+        tr.train(num_steps=4, state=state_from_tree(start, tr.init_state()))
+        losses[name] = [m["loss"] for m in tr.metrics_log]
+    np.testing.assert_allclose(losses["card"], losses["eager"], rtol=1e-5)
+    np.testing.assert_allclose(losses["card"][0], losses["cpu"][0],
+                               rtol=1e-5)
+    assert runs["card"].profiler.sampled_steps == 2
+    psg, perf, _ = runs["card"].scalana_artifacts()
+    # the measured times over 8 processes, the first loop twice as slow
+    # at p5 (one process alone can never be abnormal)
+    target = next(v for v in schedule(psg) if psg.vertices[v].kind == "Loop")
+    ppg = simulate(psg, 8, runs["card"].profiler.base_times(),
+                   inject={(5, target): perf[target].time}).ppg
+    kernel.reset_launches()
+    got = detect_abnormal(ppg, backend="torch", device=card)
+    assert kernel.ab_fused.launches == 1
+    assert got == detect_abnormal(ppg, backend="numpy")
+    assert (5, target) in [(a.proc, a.vid) for a in got]
+    once = _smoke_trainer(card, str(tmp_path / "a"), scalana=False)
+    once.train(num_steps=8)
+    for _ in range(2):
+        half = _smoke_trainer(card, str(tmp_path / "b"), scalana=False)
+        half.train(num_steps=4)
+    np.testing.assert_allclose([m["loss"] for m in half.metrics_log],
+                               [m["loss"] for m in once.metrics_log][4:],
+                               rtol=1e-5)
+
+
+CARD_RANK = """
+import sys
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_smoke
+from repro_torch.configs.base import RunConfig, ShapeConfig
+from repro_torch.core.profiler import GraphProfiler
+from repro_torch.data import make_dataset
+from repro_torch.distributed.axes import use_rules
+from repro_torch.launch.mesh import init_group, make_host_mesh
+from repro_torch.models import build_model
+from repro_torch.optim import adamw_init
+from repro_torch.optim.schedule import constant
+from repro_torch.optim.tree import leaves
+from repro_torch.training import TrainState, make_train_step
+from repro_torch.training.trainer import to_device
+
+rank, world, init, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                          sys.argv[4])
+backend = init_group(rank, world, "file://" + init, device="cuda",
+                     timeout_s=60)
+try:
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_smoke("tinyllama-1.1b")
+    model = build_model(cfg, device=dev)
+    params = model.init(model.generator(0))
+    state = TrainState(params, adamw_init(params), None,
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    step = make_train_step(model, RunConfig(), constant(1e-3))
+    data = make_dataset(cfg, ShapeConfig("dp", 16, 4, "train"))
+    batch = to_device(data.shard(world, rank).batch(0), dev)
+    with use_rules(make_host_mesh()):
+        prof = GraphProfiler(step, (state, batch), sample_every=1)
+        new, metrics = prof.step(state, batch)
+    comm = prof.psg.by_kind("Comm")
+    torch.save({"backend": backend, "loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]),
+                "mu": [m.cpu() for m in leaves(new.opt.mu)],
+                "comm": [(v.comm_kind, v.comm_bytes,
+                          v.meta["replica_groups"]) for v in comm]}, out)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_two_rank_data_parallel_step_on_the_card(card, tmp_path):
+    """Two ranks on the card (NCCL with a card each, else Gloo on one
+    card), each on its shard, through the profiler's replay: the loss and
+    grad norm of the one-process card step on the whole batch within 1e-5
+    relative, and its first moments (0.1 x the averaged gradients) within
+    1e-5 relative and 1e-4 of each leaf's largest magnitude, the gradient
+    tolerance of tests/test_torch_train.py (the new weights are not held
+    element by element: AdamW's first step moves a weight by about lr
+    whatever its gradient's size, so a near-zero gradient summed in
+    another order moves it differently); one Comm all-reduce over
+    [0, 1]."""
+    import os
+    import subprocess
+    import sys
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data import make_dataset
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init, constant
+    from repro_torch.optim.tree import leaves
+    from repro_torch.training import TrainState, make_train_step
+    from repro_torch.training.trainer import to_device
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    outs = [str(tmp_path / f"rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", CARD_RANK, str(r), "2",
+                               str(tmp_path / "init"), outs[r]], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), logs
+    cfg = get_smoke("tinyllama-1.1b")
+    model = build_model(cfg, device=card)
+    params = model.init(model.generator(0))
+    state = TrainState(params, adamw_init(params), None,
+                       torch.zeros((), dtype=torch.int32, device=card))
+    batch = to_device(make_dataset(cfg, ShapeConfig("dp", 16, 4, "train"))
+                      .batch(0), card)
+    new, metrics = make_train_step(model, RunConfig(), constant(1e-3))(
+        state, batch)
+    for out in outs:
+        got = torch.load(out, weights_only=False)
+        assert got["backend"] == ("nccl" if torch.cuda.device_count() >= 2
+                                  else "gloo")
+        assert got["comm"] == [("all_reduce", 4 * (model.param_count() + 1),
+                                [[0, 1]])]
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(got[k], float(metrics[k]), rtol=1e-5)
+        for a, b in zip(got["mu"], leaves(new.opt.mu)):
+            b = b.cpu().numpy()
+            np.testing.assert_allclose(a.numpy(), b, rtol=1e-5,
+                                       atol=1e-4 * np.abs(b).max())

@@ -82,7 +82,11 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core",
            "repro_torch.configs.nemotron_4_15b", "repro_torch.configs.yi_6b",
            "repro_torch.configs.gemma_7b",
            "repro_torch.configs.seamless_m4t_medium",
-           "repro_torch.configs.internvl2_2b", "repro_torch.models.encdec"]
+           "repro_torch.configs.internvl2_2b", "repro_torch.models.encdec",
+           "repro_torch.data", "repro_torch.data.pipeline",
+           "repro_torch.distributed", "repro_torch.distributed.axes",
+           "repro_torch.launch.mesh", "repro_torch.launch.train",
+           "repro_torch.launch.scaling_profile"]
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():
@@ -207,6 +211,28 @@ def test_train_step_example_runs_with_jax_and_repro_blocked():
     """)
     assert out.returncode == 0, out.stderr
     assert "root cause recovered: True" in out.stdout
+
+
+def test_training_launcher_and_quickstart_run_with_jax_and_repro_blocked():
+    # the launcher with a checkpoint and the report, then the quickstart,
+    # on the CPU
+    example = os.path.join(os.path.dirname(__file__), "..", "examples",
+                           "quickstart_torch.py")
+    out = _run(f"""
+        import os, runpy, tempfile
+        from repro_torch.launch import train
+        with tempfile.TemporaryDirectory() as d:
+            train.main(["--arch", "mamba2-130m", "--smoke", "--steps", "4",
+                        "--sample-every", "2", "--ckpt-dir", d, "--report",
+                        "--device", "cpu"])
+            assert sorted(os.listdir(d)) == ["step_2", "step_4"]
+        sys.argv = ["quickstart_torch.py", "--device", "cpu"]
+        runpy.run_path({os.path.abspath(example)!r}, run_name="__main__")
+        assert "jax" not in sys.modules
+    """)
+    assert out.returncode == 0, out.stderr
+    assert "[train] mamba2-130m (smoke) on cpu: 4 steps" in out.stdout
+    assert out.stdout.count("ScalAna scaling-loss report") == 2
 
 
 def test_importing_the_port_builds_nothing():
