@@ -128,7 +128,19 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    exactly one Comm all-reduce of 4 x (parameters + 1) bytes, each
    scale's median step and all-reduce times, ``detect_non_scalable``
    (``ns_fused``) and ``detect_abnormal`` (``ab_fused``) on the card
-   equal to numpy's, the non-scalable vertices and a root-cause path.
+   equal to numpy's, the non-scalable vertices and a root-cause path;
+15. tensor — two ranks on a (1, 2) mesh (spawned processes, Gloo, the
+   ranks time-sharing the card through the host), each holding its
+   parameter shards, against the same work done by this process on the
+   card: tinyllama-1.1b at full width and depth, three train steps at
+   tokens (1, 2049) (the losses within 1e-4 relative, each rank's step-1
+   parameters and first moments against its slice of the one-process
+   ones; the third step the profiler's sampled replay, then one replay
+   timing each collective), the loss through the flash kernel on the
+   rank's 16 query and 2 KV heads (22 launches a rank, within 1e-4) and
+   16 greedy tokens from a 64-token prompt (equal); then
+   moonshot-v1-16b-a3b at its published widths, 2 of 48 layers, one
+   train step (loss and MoE metrics within 1e-4).
 
 The detection kernels' launch counts are reset just before phase 3 and
 read just after phase 4, again just before phase 7's detect and just
@@ -140,7 +152,9 @@ JSON line's), every count just before phase 11 and just after (the
 engine reaches no kernel, and the phase fails if one is launched), and
 the flash count just before phase 12's models and just after (added to
 the JSON line's), and the detection counts just before each detect of
-phases 13 and 14 and just after (added to the JSON line's).
+phases 13 and 14 and just after (added to the JSON line's), and each
+rank's flash count of phase 15 just before its kernel loss and just
+after (added to the JSON line's).
 It exits non-zero, printing no
 result, when any check fails, when there is no CUDA card, or when the
 port is not next to it.  The last line is ``{"ok": true, "device":
@@ -148,6 +162,7 @@ port is not next to it.  The last line is ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -2183,6 +2198,453 @@ def phase_scaling(card: str):
     return launches
 
 
+# -- phase 15: tensor parallelism on one card ------------------------------
+
+# two ranks on a (1, 2) mesh time-share the card over Gloo (through the
+# host): tinyllama-1.1b at full width and depth, moonshot-v1-16b-a3b at
+# its published widths with its depth cut to 2 of 48 layers
+TENSOR_ARCH, TENSOR_MOE, TENSOR_MOE_LAYERS = ("tinyllama-1.1b",
+                                              "moonshot-v1-16b-a3b", 2)
+TENSOR_SEQ, TENSOR_STEPS, TENSOR_LR = 2048, 3, 1e-4   # tokens (1, 2049)
+TENSOR_PROMPT, TENSOR_NEW, TENSOR_TIMEOUT_S = 64, 16, 600
+TENSOR_TOL = 1e-4
+TENSOR_NOTE = "2 ranks time-share one H100 over Gloo through the host"
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.95, 1e-8      # adamw_update's defaults
+
+
+def _adamw_first_step(old, mu, nu, lr: float, weight_decay: float):
+    """AdamW's first step from ``old`` given the moments it left, in
+    float32 as ``repro_torch.optim.adamw_update`` computes it."""
+    import torch
+    bc1 = 1.0 - torch.tensor(ADAM_B1, dtype=torch.float32)
+    bc2 = 1.0 - torch.tensor(ADAM_B2, dtype=torch.float32)
+    old = old.float()
+    delta = (mu / bc1.to(mu.device)) / (torch.sqrt(nu / bc2.to(nu.device))
+                                        + ADAM_EPS)
+    return old - lr * (delta + weight_decay * old)
+
+
+def _tensor_batch(cfg, i: int, device):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_dataset
+    from repro_torch.training.trainer import to_device
+    data = make_dataset(cfg, ShapeConfig("tensor", TENSOR_SEQ, 1, "train"))
+    return to_device(data.batch(i), device)
+
+
+def _tensor_prompt(cfg, device):
+    import numpy as np
+    import torch
+    g = np.random.default_rng(11)
+    return torch.from_numpy(g.integers(0, cfg.vocab_size,
+                                       size=(1, TENSOR_PROMPT))).to(device)
+
+
+def _greedy(model, params, prompt):
+    import torch
+    logits, cache = model.prefill(params, {"tokens": prompt},
+                                  TENSOR_PROMPT + TENSOR_NEW)
+    toks = []
+    for _ in range(TENSOR_NEW):
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        toks.append(tok)
+        logits, cache = model.decode_step(params, cache, tok)
+    return torch.cat(toks, 1).cpu().tolist()
+
+
+def _train_state(params, device):
+    import torch
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import TrainState
+    return TrainState(params, adamw_init(params), None,
+                      torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _tensor_reference():
+    """The one-process runs on the card that the ranks are held against:
+    tinyllama's three steps (losses; each rank's shards of the parameters
+    and first moments after step 1), its kernel loss and greedy tokens,
+    and moonshot's step (loss and MoE metrics)."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.distributed import axes as ax
+    from repro_torch.models import build_model
+    from repro_torch.models.params import _walk
+    from repro_torch.optim.schedule import constant
+    from repro_torch.optim.tree import leaves
+    from repro_torch.training import make_train_step
+
+    cfg = get(TENSOR_ARCH)
+    model = build_model(cfg, device="cuda")
+    buffers = _shard_buffers(model)
+    params = model.init(model.generator(0))
+    step = make_train_step(model, RunConfig(), constant(TENSOR_LR))
+    state, losses, shards = _train_state(params, "cuda"), [], None
+    for i in range(TENSOR_STEPS):
+        state, m = step(state, _tensor_batch(cfg, i, "cuda"))
+        losses.append(float(m["loss"]))
+        if i == 0:
+            shards = [_rank_shards(model, state, flat, r)
+                      for r, flat in enumerate(buffers)]
+    del state
+    gc.collect()
+    model_k = build_model(cfg.replace(use_kernels=True), device="cuda")
+    with torch.no_grad():
+        kernel_loss = float(model_k.train_loss(
+            params, _tensor_batch(cfg, 0, "cuda"))[0])
+        tokens = _greedy(model_k, params, _tensor_prompt(cfg, "cuda"))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = get(TENSOR_MOE).replace(n_layers=TENSOR_MOE_LAYERS)
+    mmodel = build_model(mcfg, device="cuda")
+    mparams = mmodel.init(mmodel.generator(0))
+    mstep = make_train_step(mmodel, RunConfig(), constant(TENSOR_LR))
+    mm = mstep(_train_state(mparams, "cuda"),
+               _tensor_batch(mcfg, 0, "cuda"))[1]
+    moe = {k: float(mm[k]) for k in ("loss", "moe_aux_loss", "moe_z_loss",
+                                     "moe_drop_frac")}
+    del mparams, mm
+    torch.cuda.empty_cache()
+    return {"losses": losses, "kernel_loss": kernel_loss, "tokens": tokens,
+            "moe": moe, "nparams": (model.param_count(),
+                                    mmodel.param_count())}, shards
+
+
+def _shard_buffers(model) -> list:
+    """One buffer a rank for its slices of the step-1 parameters and first
+    moments on a (1, 2) mesh, allocated before anything else of the
+    phase: the ranks read them through CUDA IPC, which keeps a shared
+    allocation's whole segment alive, so each gets a segment of its own
+    and frees whole."""
+    import torch
+    from repro_torch.distributed import axes as ax
+    from repro_torch.models.params import _walk
+    torch.cuda.empty_cache()
+    with ax.use_rules({"data": 1, "model": 2}):
+        n = sum(2 * torch.Size(ax.local_shape(sp.axes, sp.shape)).numel()
+                for _, sp in _walk(model.specs))
+    return [torch.empty(n, dtype=torch.float32, device="cuda")
+            for _ in range(2)]
+
+
+def _rank_shards(model, state, flat, rank: int) -> dict:
+    """Rank ``rank``'s slices of ``state``'s parameters and first moments
+    as views of its buffer ``flat``."""
+    from repro_torch.distributed import axes as ax
+    from repro_torch.models.params import _walk
+    from repro_torch.optim.tree import leaves
+    specs = [sp for _, sp in _walk(model.specs)]
+    out, at = {}, 0
+    for k, tree in (("params", state.params), ("mu", state.opt.mu)):
+        out[k] = []
+        for t, sp in zip(leaves(tree), specs):
+            with ax.use_rules({"data": 1, "model": 2}):
+                part = ax.local_shard(t, sp.axes, rank=rank)
+            view = flat[at:at + part.numel()].view(part.shape)
+            view.copy_(part)
+            out[k].append(view)
+            at += part.numel()
+    assert at == flat.numel()
+    return out
+
+
+class _CommTimer:
+    """A replay of a traced step that fences and times each collective
+    (with the wait that completes it), by its group's ranks."""
+
+    def __init__(self, traced):
+        import torch.fx
+
+        from repro_torch.core import psg as psg_lib
+        timer = self
+        self.ms = {}
+
+        class Run(torch.fx.Interpreter):
+            def run_node(self, n):
+                coll = psg_lib._collective(n)
+                waited = psg_lib._waited(n)
+                if coll is None and waited is None:
+                    return super().run_node(n)
+                import torch
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = super().run_node(n)
+                torch.cuda.synchronize()
+                src = n if coll is not None else waited
+                kind, arg = psg_lib._collective(src)
+                key = (kind, tuple(psg_lib._group_ranks(src.args[arg])))
+                timer.ms[key] = timer.ms.get(key, 0.0) + \
+                    1e3 * (time.perf_counter() - t0)
+                return out
+
+        self.run = Run(traced.graph_module)
+
+
+def _tensor_rank(rank: int, init: str, ref: dict, shard: dict, q) -> None:
+    """One rank of ``[tensor]``: tinyllama's steps, kernel loss and
+    greedy decode, then moonshot's step, each checked here against the
+    one-process ``ref`` (``shard``: this rank's slice of its step-1
+    parameters and moments); the result dict goes to ``q``."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    out = {"rank": rank}
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.configs import get
+        from repro_torch.configs.base import RunConfig
+        from repro_torch.core.profiler import GraphProfiler
+        from repro_torch.distributed import axes as ax
+        from repro_torch.kernels.flash_attention import kernel as flash
+        from repro_torch.launch.mesh import init_group, make_host_mesh
+        from repro_torch.models import build_model
+        from repro_torch.optim.schedule import constant
+        from repro_torch.optim.tree import leaves
+        from repro_torch.training import make_train_step
+
+        out["backend"] = init_group(rank, 2, "file://" + init,
+                                    device="cuda", timeout_s=300,
+                                    backend="gloo")
+        mesh = make_host_mesh(2, device="cuda")
+        cfg = get(TENSOR_ARCH)
+        model = build_model(cfg, device="cuda")
+        with ax.use_rules(mesh):
+            params = model.init(model.generator(0))
+            step = make_train_step(model, RunConfig(), constant(TENSOR_LR))
+            state = _train_state(params, "cuda")
+            t0 = time.perf_counter()
+            prof = GraphProfiler(step, (state, _tensor_batch(cfg, 0, "cuda")),
+                                 sample_every=TENSOR_STEPS)
+            out["trace_s"] = time.perf_counter() - t0
+            out["mem_after_trace"] = (torch.cuda.memory_allocated() / 1e9,
+                                      torch.cuda.mem_get_info()[0] / 1e9)
+            losses, times = [], []
+            for i in range(TENSOR_STEPS):
+                batch = _tensor_batch(cfg, i, "cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = prof.step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+                if i == 0:
+                    err = {}
+                    for k, tree in (("params", state.params),
+                                    ("mu", state.opt.mu)):
+                        err[k] = max(
+                            float((a - b).abs().max())
+                            / max(float(b.abs().max()), 1e-30)
+                            for a, b in zip(leaves(tree), shard[k]))
+                    # the second moments hold the one-process gradient:
+                    # sqrt(nu / (1 - b2)) = |mu| / (1 - b1) = |g|
+                    err["nu"] = max(
+                        float((torch.sqrt(v / (1 - ADAM_B2))
+                               - m.abs() / (1 - ADAM_B1)).abs().max())
+                        / max(float(m.abs().max()) / (1 - ADAM_B1), 1e-30)
+                        for v, m in zip(leaves(state.opt.nu), shard["mu"]))
+                    # AdamW's first step turns a gradient's round-off
+                    # difference into up to lr / eps times that in the
+                    # parameter where |g| is near eps, so the new
+                    # parameters are held against the first step from this
+                    # rank's own moments and old shards, within 1e-6
+                    # relative (1e-5 of lr absolute)
+                    excess = 0.0
+                    for p, p0, m, v in zip(leaves(state.params),
+                                           leaves(params),
+                                           leaves(state.opt.mu),
+                                           leaves(state.opt.nu)):
+                        want = _adamw_first_step(
+                            p0, m, v, TENSOR_LR, RunConfig().weight_decay)
+                        excess = max(excess, float(
+                            ((p.float() - want).abs() - 1e-6 * want.abs()
+                             - 1e-5 * TENSOR_LR).max()))
+                    out["step1"] = {**err, "param_excess": excess}
+                    # the process object holds the dict: empty it
+                    shard.clear()
+                    del p, p0, m, v, want
+                    q.put({"rank": rank, "released": True})
+            out["losses"], out["step_s"] = losses, times
+            out["sampled"] = prof.sampled_steps
+            timer = _CommTimer(prof.traced)
+            timer.run.run(*prof.traced.flat_args(state, batch))
+            out["comm_ms"] = {f"{k[0]} {list(k[1])}": v
+                              for k, v in timer.ms.items()}
+            out["comm_count"] = len(timer.ms)
+            del state, prof, timer
+            gc.collect()
+            torch.cuda.empty_cache()
+            model_k = build_model(cfg.replace(use_kernels=True),
+                                  device="cuda")
+            flash.flash_attention.launches = 0
+            with torch.no_grad():
+                out["kernel_loss"] = float(model_k.train_loss(
+                    params, _tensor_batch(cfg, 0, "cuda"))[0])
+            out["flash_launches"] = flash.flash_attention.launches
+            with torch.no_grad():
+                out["tokens"] = _greedy(model_k, params,
+                                        _tensor_prompt(cfg, "cuda"))
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            mcfg = get(TENSOR_MOE).replace(n_layers=TENSOR_MOE_LAYERS)
+            mmodel = build_model(mcfg, device="cuda")
+            mparams = mmodel.init(mmodel.generator(0))
+            mstep = make_train_step(mmodel, RunConfig(), constant(TENSOR_LR))
+            mstate = _train_state(mparams, "cuda")
+            mbatch = _tensor_batch(mcfg, 0, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, mm = mstep(mstate, mbatch)
+            torch.cuda.synchronize()
+            out["moe_step_s"] = time.perf_counter() - t0
+            out["moe"] = {k: float(mm[k]) for k in ref["moe"]}
+            out["moe_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    except Exception:
+        out["error"] = (traceback.format_exc()[-4000:]
+                        + f"\nmemory {out.get('mem_after_trace')}")
+    finally:
+        q.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_tensor(card: str) -> int:
+    """[tensor]: two ranks on a (1, 2) mesh on the card against the same
+    work in one process.  Returns the ranks' flash launches."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get
+
+    gc.collect()                   # earlier phases' checkpointed steps
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref, shards = _tensor_reference()
+    print(f"  one-process reference (tinyllama {ref['nparams'][0]} params, "
+          f"{TENSOR_STEPS} steps, kernel loss, decode; moonshot "
+          f"{TENSOR_MOE_LAYERS} layers, {ref['nparams'][1]} params, one "
+          f"step) {time.perf_counter() - t0:.1f} s: losses "
+          f"{[round(x, 6) for x in ref['losses']]}, moonshot "
+          f"{ref['moe']}")
+    gc.collect()              # checkpointed steps leave reference cycles
+    torch.cuda.empty_cache()
+    print(f"  this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB"
+          f" ({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved) of the "
+          f"card for the ranks' step-1 checks")
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init = tempfile.mktemp(prefix="chip_smoke_tensor_")
+    # the ranks' allocators map memory as they grow: two ranks and this
+    # process share the card, and cached blocks of one cannot serve another
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_tensor_rank,
+                         args=(r, init, ref, shards[r], q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    outs, released = [], 0
+    try:
+        while len(outs) < len(procs):
+            o = q.get(timeout=TENSOR_TIMEOUT_S)
+            if o.get("released"):          # both ranks done with the
+                released += 1              # step-1 shards: free them
+                if released == len(procs):
+                    for d in shards:        # the processes hold the dicts
+                        d.clear()
+                    torch.cuda.ipc_collect()
+                    torch.cuda.empty_cache()
+                    print(f"  step-1 shards released: this process holds "
+                          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+                continue
+            outs.append(o)
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if os.path.exists(init):
+            os.remove(init)
+        os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    outs.sort(key=lambda o: o["rank"])
+    for o in outs:
+        check("error" not in o, f"tensor: rank {o['rank']} failed:\n"
+              f"{o.get('error')}")
+    launches = 0
+    for o in outs:
+        r = o["rank"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(o["losses"],
+                                                   ref["losses"])]
+        check(len(rel) == TENSOR_STEPS and max(rel) <= TENSOR_TOL,
+              f"tensor: rank {r} losses {o['losses']} vs {ref['losses']}")
+        s1 = o["step1"]
+        check(s1["mu"] <= TENSOR_TOL and s1["nu"] <= TENSOR_TOL
+              and s1["param_excess"] <= 0.0,
+              f"tensor: rank {r} step-1 shards {s1}")
+        kl = abs(o["kernel_loss"] - ref["kernel_loss"])
+        check(kl <= TENSOR_TOL * abs(ref["kernel_loss"]),
+              f"tensor: rank {r} kernel loss {o['kernel_loss']} vs "
+              f"{ref['kernel_loss']}")
+        # the kernel against the plain path on the same parameters and
+        # batch: the rank's first loss, taken before any update
+        check(abs(o["kernel_loss"] - o["losses"][0]) < 1e-3,
+              f"tensor: rank {r} kernel loss {o['kernel_loss']} vs plain "
+              f"{o['losses'][0]}")
+        want = get(TENSOR_ARCH).n_layers       # one flash launch a layer
+        check(o["flash_launches"] == want,
+              f"tensor: rank {r} flash launches {o['flash_launches']}, "
+              f"expected {want}")
+        launches += o["flash_launches"]
+        check(o["tokens"] == ref["tokens"],
+              f"tensor: rank {r} tokens {o['tokens']} vs {ref['tokens']}")
+        check(o["comm_count"] > 0 and any(
+            k.startswith("all_reduce [0, 1]") for k in o["comm_ms"]),
+              f"tensor: rank {r} collectives {o['comm_ms']}")
+        for k, want_v in ref["moe"].items():
+            got = o["moe"][k]
+            check(abs(got - want_v) <= TENSOR_TOL * max(abs(want_v), 1.0),
+                  f"tensor: rank {r} moonshot {k} {got} vs {want_v}")
+        model_ms = sum(v for k, v in o["comm_ms"].items()
+                       if k.startswith("all_reduce [0, 1]"))
+        print(f"  rank {r} ({o['backend']}): tinyllama median step "
+              f"{1e3 * statistics.median(o['step_s']):.3f} ms "
+              f"({[round(1e3 * x, 3) for x in o['step_s']]}; step "
+              f"{TENSOR_STEPS} the profiler's sampled replay), losses "
+              f"{[round(x, 6) for x in o['losses']]} (max rel "
+              f"{max(rel):.2e}); step 1: mu / nu max|d|/max|ref| a leaf "
+              f"{s1['mu']:.2e} / {s1['nu']:.2e}, params = AdamW's first "
+              f"step from the rank's moments (excess "
+              f"{s1['param_excess']:.2e}; max|d|/max|ref| against one "
+              f"process a leaf {s1['params']:.2e}); trace "
+              f"{o['trace_s']:.2f} s  [{TENSOR_NOTE}; {card}]")
+        print(f"  rank {r}: model-axis all-reduces {model_ms:.3f} ms of a "
+              f"replayed step ("
+              + ", ".join(f"{k}: {v:.3f} ms" for k, v in
+                          sorted(o["comm_ms"].items()))
+              + f"); kernel loss {o['kernel_loss']:.6f} (one process "
+              f"{ref['kernel_loss']:.6f}, plain {o['losses'][0]:.6f}), "
+              f"{o['flash_launches']} flash "
+              f"launches; {TENSOR_NEW} greedy tokens equal; peak "
+              f"{o['peak_gb']:.2f} GB  [{TENSOR_NOTE}; {card}]")
+        print(f"  rank {r}: moonshot ({TENSOR_MOE_LAYERS} layers) step "
+              f"{1e3 * o['moe_step_s']:.3f} ms, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in o["moe"].items())
+              + f"; peak {o['moe_peak_gb']:.2f} GB  [{TENSOR_NOTE}; "
+              f"{card}]")
+    print(f"  ranks' wall {wall:.1f} s (process start, trace and both "
+          f"models included)")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2368,6 +2830,15 @@ def main() -> int:
         launches["ns_fused"] += ns_n
         print(f"[scaling] phase wall time "
               f"{time.perf_counter() - t_scale:.1f} s  [{card}]")
+        torch.cuda.empty_cache()
+        t_tensor = time.perf_counter()
+        print(f"[tensor] tensor parallelism on a (1, 2) mesh: "
+              f"{TENSOR_ARCH} at full width and depth, {TENSOR_MOE} at "
+              f"{TENSOR_MOE_LAYERS} of its layers; {TENSOR_NOTE}; {card}")
+        launches["flash_attention"] += phase_tensor(card)
+        print(f"[tensor] phase wall time "
+              f"{time.perf_counter() - t_tensor:.1f} s  [{TENSOR_NOTE}; "
+              f"{card}]")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

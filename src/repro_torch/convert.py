@@ -42,8 +42,9 @@ def from_reference(psg_json: str, perf_tree: Tree,
 
 
 def params_from_reference(tree: Mapping[str, Any],
-                          device: Optional[torch.device | str] = None
-                          ) -> Dict[str, Any]:
+                          device: Optional[torch.device | str] = None,
+                          *, specs: Optional[Mapping[str, Any]] = None,
+                          mesh: Any = None) -> Dict[str, Any]:
     """The port's model parameters equal to the JAX package's parameter
     pytree ``tree`` (nested dicts whose leaves are numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``), on ``device`` (``cuda`` when
@@ -53,8 +54,20 @@ def params_from_reference(tree: Mapping[str, Any],
     is: matrices stay ``(in, out)`` and are applied as ``x @ w`` (they are
     not transposed for ``nn.Linear``), and every per-layer leaf keeps its
     leading stacked ``n_layers`` axis, which the port's layer loop
-    indexes."""
+    indexes.
+
+    With a ``mesh`` (and the model's ``specs``) each leaf is this rank's
+    shard of it under the default rules on that mesh, as
+    :func:`repro_torch.models.params.init_params` makes them."""
     dev = torch.device("cuda" if device is None else device)
+    if mesh is not None:
+        from repro_torch.distributed.axes import use_rules
+        from repro_torch.models.params import local_params
+        if specs is None:
+            raise ValueError("params_from_reference: a mesh needs the "
+                             "model's specs")
+        with use_rules(mesh):
+            return local_params(params_from_reference(tree, dev), specs)
     out: Dict[str, Any] = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):

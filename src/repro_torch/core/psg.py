@@ -19,8 +19,14 @@ same frames, turned into backward frames, to the ATen nodes of its
 backward, so the backward of a marked loop (and the recompute it
 triggers) is a loop of its own, as the transposed ``scan`` is in a jaxpr.
 
+The program marks a data-dependent branch with :func:`cond`, the twin
+of ``jax.lax.cond``: the arm that runs gets a frame of its own (one
+trip), in the forward, in its backward and in a checkpoint's recompute.
+
 The builder then folds each run of one loop's nodes into a Loop vertex
-with ``meta["trip_count"]`` and its body from the run's first iteration;
+with ``meta["trip_count"]`` and its body from the run's lowest-numbered
+iteration (the first in the forward, the last to run in a backward), and
+each run of one branch's nodes into a Branch vertex over the arm's nodes;
 every other ATen node is a Comp vertex with the counters of
 :mod:`repro_torch.core.costs`.  A loop's counters are the sum over all
 its iterations (``trip_count`` times the body when the iterations are
@@ -50,16 +56,19 @@ import torch.fx.traceback as fx_traceback
 from torch.overrides import TorchFunctionMode
 
 from repro_torch.core import costs
-from repro_torch.core.graph import COMM, COMP, LOOP, PSG, ROOT, Vertex
+from repro_torch.core.graph import (BRANCH, COMM, COMP, LOOP, PSG, ROOT,
+                                    Vertex)
 
 LOOP_SCOPE = "scalana.loop:"
 ITER_SCOPE = "scalana.iter:"
+BRANCH_SCOPE = "scalana.branch:"
 _KEY = "scalana:"
 # frames that are not the program's: as the code objects name them
 _SKIP_FILES = (os.path.dirname(torch.__file__) + os.sep, __file__,
                contextlib.__file__)
 
-# (loop instance, backward?, iteration): one enclosing loop of a node
+# (loop or branch instance, backward?, iteration): one enclosing loop or
+# branch of a node (a branch's iteration is always 0)
 Frame = Tuple[int, bool, Optional[int]]
 
 
@@ -76,7 +85,8 @@ class _Trace:
     """The loop frames, keys and autograd hooks of one trace."""
 
     def __init__(self) -> None:
-        self.loops: List[Tuple[str, str]] = []      # instance -> (name, src)
+        # instance -> (name, src, kind): LOOP or BRANCH
+        self.loops: List[Tuple[str, str, str]] = []
         self.stack: List[List[Any]] = []            # [instance, iteration]
         self.keys: Dict[Tuple[str, Tuple[Frame, ...]], int] = {}
         self.table: List[Tuple[str, Tuple[Frame, ...]]] = []
@@ -165,7 +175,7 @@ def _loop(name: str, src: str):
             f"{LOOP_SCOPE}{name}@{os.path.basename(src)}"):
         if tr is not None:
             tr.stack.append([len(tr.loops), None])
-            tr.loops.append((name, src))
+            tr.loops.append((name, src, LOOP))
         try:
             yield
         finally:
@@ -207,6 +217,64 @@ def scan(body: Callable[[Any, Any], Tuple[Any, Any]], carry: Any,
                 carry, y = _iterate(body, name, i, carry, x)
             ys.append(y)
     return carry, ys
+
+
+@contextlib.contextmanager
+def own_source():
+    """For code that autograd runs (a custom ``Function``'s backward, a
+    checkpoint's recompute), which the trace's torch-function mode does
+    not see: the nodes made inside get the caller's ``file:line`` with
+    the running backward's frames, not those of the autograd node that
+    triggered it."""
+    tr = _TRACE
+    if tr is None or tr.bwd is None:
+        yield
+        return
+    prev = fx_traceback.get_current_meta().get("stack_trace")
+    fx_traceback.set_stack_trace([tr.key(_caller(), tr.bwd)])
+    try:
+        yield
+    finally:
+        fx_traceback.set_stack_trace([prev] if prev else [])
+
+
+def cond(pred: bool, true_fn: Callable[[Any], Any],
+         false_fn: Callable[[Any], Any], operand: Any, *, name: str) -> Any:
+    """``true_fn(operand)`` if ``pred`` else ``false_fn(operand)``: the
+    twin of ``jax.lax.cond`` for a ``pred`` that is a Python bool.  The
+    arm that runs is a Branch vertex named ``cond:<name>`` in the PSG,
+    and a ``record_function`` scope in profiles.  In a checkpoint's
+    recompute the arm's nodes get the frame again, under the backward's
+    enclosing loop frames."""
+    src = _caller()
+    fn = true_fn if pred else false_fn
+    tr = _TRACE
+    with torch.profiler.record_function(
+            f"{BRANCH_SCOPE}{name}@{os.path.basename(src)}"):
+        if tr is None:
+            return fn(operand)
+        if tr.bwd is None:
+            tr.stack.append([len(tr.loops), 0])
+            tr.loops.append((name, src, BRANCH))
+            try:
+                return fn(operand)
+            finally:
+                tr.stack.pop()
+        # a recompute: the arm under the frames of the loop being
+        # recomputed (a recompute triggered inside the arm's own backward
+        # carries the arm's frame already: drop it first)
+        prev = tr.bwd
+        outer = prev
+        while outer and tr.loops[outer[-1][0]][2] == BRANCH:
+            outer = outer[:-1]
+        tr.bwd = outer + ((len(tr.loops), True, 0),)
+        tr.loops.append((name, src, BRANCH))
+        fx_traceback.set_stack_trace([tr.key(src, tr.bwd)])
+        try:
+            return fn(operand)
+        finally:
+            tr.bwd = prev
+            fx_traceback.set_stack_trace([tr.key(src, prev)])
 
 
 # ---------------------------------------------------------------------------
@@ -439,14 +507,19 @@ class _Builder:
 
     def _loop(self, run: List[Item], parent: int, depth: int) -> Vertex:
         inst, backward, _ = run[0][2][0]
-        name, src = self.tr.loops[inst]
+        name, src, kind = self.tr.loops[inst]
         its = [p[0][2] for _, _, p in run if p[0][2] is not None]
-        v = self.psg.new_vertex(
-            LOOP, f"scan:{name}" + (".grad" if backward else ""), source=src,
-            parent=parent, depth=depth,
-            meta={"trip_count": len(set(its)) or 1})
+        grad = ".grad" if backward else ""
+        if kind == BRANCH:
+            v = self.psg.new_vertex(BRANCH, f"cond:{name}{grad}", source=src,
+                                    parent=parent, depth=depth)
+        else:
+            v = self.psg.new_vertex(
+                LOOP, f"scan:{name}{grad}", source=src, parent=parent,
+                depth=depth, meta={"trip_count": len(set(its)) or 1})
         if depth < self.max_depth and its:
-            self.walk([(n, s, p[1:]) for n, s, p in run if p[0][2] == its[0]],
+            body = min(its)
+            self.walk([(n, s, p[1:]) for n, s, p in run if p[0][2] == body],
                       v.vid, depth + 1)
         cs = [self.cost(n) for n, _, _ in run]
         v.flops = float(sum(c[0] for c in cs))

@@ -18,21 +18,46 @@ A logical dim is only sharded if its size is divisible by the mesh axis
 product (padding is legal but wasteful; we opt out explicitly, e.g.
 yi-6b's 4 KV heads on a 16-way model axis stay replicated).
 
-The port's launch layer is data-parallel: the train step averages its
-gradients over the ``data`` axis itself (``training/trainer.py``).  So
-``logical_constraint`` and ``weight_constraint`` are identities without
-a mesh, and under a mesh whose only axes above size 1 are batch axes
-('pod', 'data'), where every activation is the rank's batch shard.
-Under a ``model`` axis above 1 they raise: tensor parallelism is
-ROADMAP Queue 1 item 10b.
+Distribution is explicit, not a compiler's.  A rank holds the local
+shards of its parameters: the slice that ``spec_for`` gives its
+coordinate on the ``model`` axis (the ``data`` part of a spec, FSDP
+storage, is not applied: a weight stays whole across ``data`` ranks).
+The models run on those shards and call the collectives below where
+GSPMD would insert them for the reference, Megatron's column/row split:
+
+* :func:`copy_to_model` — identity forward, all-reduce over ``model``
+  backward, where a replicated activation enters column-parallel weights;
+* :func:`reduce_from_model` — all-reduce over ``model`` forward, identity
+  backward, where row-parallel partial sums leave;
+* :func:`gather_from_model` — all-gather over ``model`` forward,
+  reduce-scatter backward, for a weight sharded where its use needs it
+  whole (the MoE router, K/V weights split inside a head);
+* :func:`batch_mean` — a mean over the batch axes ('pod', 'data') whose
+  backward passes the cotangent through (the MoE load-balance means).
+
+Each is a functional collective, so a traced step holds it as a Comm
+vertex with its ``file:line`` here.  ``logical_constraint`` is the
+reference's hint on an activation: under these local shards it has
+nothing to move, so it is an identity for the names the transformer
+families use, and raises for the names of the families whose tensor
+parallelism is ROADMAP Queue 1 item 10b (SSM, hybrid, encoder-decoder),
+as :func:`require_data_parallel` does at their entry points.
 """
 from __future__ import annotations
 
 import contextlib
-import threading
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed._functional_collectives as funcol
+
+from repro_torch.core.psg import own_source
+
+# torch 2.11 has only the ``*_tensor`` names; later releases add the
+# ``*_single`` names and deprecate the others: call whichever is there
+_all_gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
+_reduce_scatter = getattr(funcol, "reduce_scatter_single",
+                          funcol.reduce_scatter_tensor)
 
 Rule = Union[str, Tuple[str, ...], None]
 
@@ -74,7 +99,11 @@ class PartitionSpec(tuple):
         return f"PartitionSpec{tuple.__repr__(self)}"
 
 
-class _Ctx(threading.local):
+class _Ctx:
+    """The installed mesh, rules and options: process-wide, not per
+    thread, because on a card the autograd engine runs a backward, and a
+    checkpoint's recompute of the forward, on a thread of its own."""
+
     def __init__(self):
         self.mesh: Any = None
         self.rules: Dict[str, Rule] = {}
@@ -119,26 +148,44 @@ def axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(names, (int(n) for n in mesh.shape)))
 
 
+def model_size(mesh=None) -> int:
+    """Size of the ``model`` axis of ``mesh`` (the active mesh when None);
+    1 without one."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    return 1 if mesh is None else axis_sizes(mesh).get("model", 1)
+
+
 def require_data_parallel(mesh, what: str) -> None:
     """Raise unless every axis of ``mesh`` above size 1 splits only the
-    batch: the port has no tensor-parallel path yet."""
+    batch: for the families whose tensor parallelism is not ported."""
+    if mesh is None:
+        return
     wide = [a for a, n in axis_sizes(mesh).items()
             if n > 1 and a not in BATCH_AXES]
     if wide:
         raise NotImplementedError(
             f"{what} under mesh axes {wide} above size 1: tensor "
-            "parallelism on torch is ROADMAP Queue 1 item 10b")
+            "parallelism of this family on torch is ROADMAP Queue 1 "
+            "item 10b")
 
 
 def weight_constraint(w: torch.Tensor, *logical_axes: Optional[str]
                       ) -> torch.Tensor:
     """FSDP gather-at-use point for a weight matrix: a no-op unless the
-    ``gather_weights`` option is on, then ``logical_constraint`` with the
-    weight's 'embed' (FSDP-storage) dim replicated."""
+    ``gather_weights`` option is on.  Weights are not stored sharded on
+    'data' (FSDP storage is ROADMAP Queue 1 item 10b), so that option
+    raises under a mesh."""
     if not option("gather_weights"):
         return w
-    axes = tuple(None if a == "embed" else a for a in logical_axes)
-    return logical_constraint(w, *axes)
+    if _CTX.mesh is not None:
+        raise NotImplementedError(
+            "gather_weights: FSDP storage of 'embed' on 'data' on torch is "
+            "ROADMAP Queue 1 item 10b")
+    return w
+
+
+# logical names of the families whose tensor parallelism is not ported
+_UNPORTED = ("ssm_inner", "ssm_heads", "ssm_pdim")
 
 
 def _mesh_axes_of(rule: Rule, sizes: Mapping[str, int]) -> Tuple[str, ...]:
@@ -202,13 +249,254 @@ def placements_for(spec: PartitionSpec, mesh) -> Tuple[Any, ...]:
 
 def logical_constraint(x: torch.Tensor, *logical_axes: Optional[str]
                        ) -> torch.Tensor:
-    """The sharding hint via logical names: a no-op without a mesh and
-    under a data-parallel mesh; raises under a model axis above 1."""
+    """The reference's sharding hint via logical names.  A rank's tensors
+    are its local shards already, so there is nothing to move: the
+    identity without a mesh, under a data-parallel mesh, and under a
+    ``model`` axis for the names the transformer families use.  Under a
+    ``model`` axis above 1 it raises for a name that the rules put on
+    ``model`` for another family, or for a sequence dim that they put
+    there (``seq_shard``)."""
+    mesh = _CTX.mesh
+    if mesh is None or model_size(mesh) == 1:
+        return x
+    for name in logical_axes:
+        if name is None:
+            continue
+        on_model = "model" in _mesh_axes_of(_CTX.rules.get(name),
+                                            axis_sizes(mesh))
+        if on_model and (name in _UNPORTED or name.endswith("seq")):
+            raise NotImplementedError(
+                f"logical_constraint: {name!r} on the model axis on torch "
+                "is ROADMAP Queue 1 item 10b")
+    return x
+
+
+# ---------------------------------------------------------------------------
+# local shards
+# ---------------------------------------------------------------------------
+
+def model_dim(logical_axes: Sequence[Optional[str]], shape: Sequence[int]
+              ) -> Optional[int]:
+    """The dim of a value with these logical axes and global ``shape``
+    that the active rules shard on a ``model`` axis above 1, or None
+    (the value is whole on every ``model`` rank)."""
+    mesh = _CTX.mesh
+    if model_size(mesh) == 1:
+        return None
+    for d, ax in enumerate(spec_for(logical_axes, shape, mesh)):
+        flat = () if ax is None else ((ax,) if isinstance(ax, str) else ax)
+        if "model" in flat:
+            if len(flat) > 1:
+                raise NotImplementedError(
+                    f"{tuple(logical_axes)}: a dim split over {flat} on "
+                    "torch is ROADMAP Queue 1 item 10b")
+            return d
+    return None
+
+
+def model_rank() -> int:
+    """This process's coordinate on the ``model`` axis (0 without one)."""
+    if model_size() == 1:
+        return 0
+    return _device_mesh(_CTX.mesh).get_local_rank("model")
+
+
+def local_shape(logical_axes: Sequence[Optional[str]],
+                shape: Sequence[int]) -> Tuple[int, ...]:
+    """The shape of a rank's shard of a value of global ``shape``."""
+    d = model_dim(logical_axes, shape)
+    out = list(shape)
+    if d is not None:
+        out[d] //= model_size()
+    return tuple(out)
+
+
+def local_shard(t: torch.Tensor, logical_axes: Sequence[Optional[str]],
+                rank: Optional[int] = None) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``t`` (``t`` itself when it
+    is not split on ``model``); ``rank`` picks another ``model``
+    coordinate's (under rules on a mesh given by its axis sizes)."""
+    d = model_dim(logical_axes, t.shape)
+    if d is None:
+        return t
+    n = t.shape[d] // model_size()
+    r = model_rank() if rank is None else rank
+    return t.narrow(d, r * n, n).contiguous()
+
+
+def gather_shards(t: torch.Tensor, logical_axes: Sequence[Optional[str]],
+                  shape: Sequence[int]) -> torch.Tensor:
+    """The whole tensor of global ``shape`` from every rank's shard ``t``
+    (an all-gather over ``model``; ``t`` itself when not split)."""
+    d = model_dim(logical_axes, shape)
+    if d is None:
+        return t
+    return _GatherFromModel.apply(t, d)
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+def _device_mesh(mesh):
+    if mesh is None or isinstance(mesh, Mapping):
+        raise ValueError("a collective needs a DeviceMesh, not axis sizes")
+    return mesh
+
+
+def _done(t: torch.Tensor) -> torch.Tensor:
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def _model_group():
+    return _device_mesh(_CTX.mesh).get_group("model")
+
+
+# Each collective is called where its kind is (own_source: its line is
+# the Comm vertex's source in the backward and a recompute too); a
+# backward runs over the group its forward ran over.
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.group = _model_group()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with own_source():
+            return _done(funcol.all_reduce(g, "sum", ctx.group))
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        with own_source():
+            return _done(funcol.all_reduce(x, "sum", _model_group()))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _all_reduce_only(t: torch.Tensor, group) -> bool:
+    """Gloo has no all-gather or reduce-scatter of CUDA tensors (the ranks
+    of one card): there they are all-reduces of the zero-padded shards
+    and of the whole tensor."""
+    import torch.distributed as dist
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        import torch.distributed as dist
+        ctx.dim, ctx.group = dim, _model_group()
+        x = x.contiguous()
+        with own_source():
+            if not _all_reduce_only(x, ctx.group):
+                return _done(_all_gather(x, dim, ctx.group))
+            n, r = x.shape[dim], dist.get_rank(ctx.group)
+            shape = list(x.shape)
+            shape[dim] = n * dist.get_world_size(ctx.group)
+            buf = x.new_zeros(shape)
+            buf.narrow(dim, r * n, n).copy_(x)
+            return _done(funcol.all_reduce(buf, "sum", ctx.group))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous()
+        with own_source():
+            if not _all_reduce_only(g, ctx.group):
+                return _done(_reduce_scatter(g, "sum", ctx.dim,
+                                             ctx.group)), None
+            whole = _done(funcol.all_reduce(g, "sum", ctx.group))
+        n = g.shape[ctx.dim] // dist.get_world_size(ctx.group)
+        return whole.narrow(ctx.dim, dist.get_rank(ctx.group) * n,
+                            n).contiguous(), None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+class _BatchMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        with own_source():
+            return _done(funcol.all_reduce(x, "sum", group)) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's f: ``x`` as it is; its gradient summed over ``model``.
+    Where a replicated activation (or weight) meets column-parallel work
+    whose gradient each rank only has its part of."""
+    return _CopyToModel.apply(x)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's g: the sum over ``model`` of the ranks' partial ``x``;
+    its gradient passed through (every rank's is the whole one)."""
+    return _ReduceFromModel.apply(x)
+
+
+def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over ``model`` of ``x`` (no gradient: a
+    logsumexp's shift)."""
+    with own_source():
+        return _done(funcol.all_reduce(x.detach(), "max", _model_group()))
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every ``model`` rank's shard ``x`` concatenated along ``dim``; the
+    gradient reduce-scattered back to the shards."""
+    return _GatherFromModel.apply(x, dim)
+
+
+def model_grad_share(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient divided by the ``model`` axis size:
+    for a term that every ``model`` rank computes whole but whose
+    gradient reaches the parameters through a sum over ``model``
+    (:func:`copy_to_model`, :func:`gather_from_model`), so that the sum
+    counts it once."""
+    m = model_size()
+    return x if m == 1 else _ScaleGrad.apply(x, 1.0 / m)
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the batch axes ('pod', 'data') of the active
+    mesh: one all-reduce (sum, then divided by the axes' size) under any
+    mesh, a batch axis of size 1 included, so traced steps have the same
+    vertices at every scale; the identity without a mesh.  The backward
+    passes the cotangent through unchanged: every batch rank's loss holds
+    the same mean, and the step's data-parallel mean already divides the
+    summed gradients by the axes' size."""
     mesh = _CTX.mesh
     if mesh is None:
         return x
-    require_data_parallel(mesh, "logical_constraint")
-    return x
+    dm = _device_mesh(mesh)
+    names = [a for a in BATCH_AXES if a in axis_sizes(dm)]
+    if not names:
+        return x
+    if len(names) == 1:       # the group and size without a sub-mesh,
+        group = dm.get_group(names[0])   # whose tensor ops a trace sees
+        n = axis_sizes(dm)[names[0]]
+    else:
+        sub = dm[tuple(names)]._flatten()
+        group, n = sub.get_group(), sub.size()
+    return _BatchMean.apply(x, group, n)
 
 
 def sharding_for(logical_axes: Sequence[Optional[str]], shape: Sequence[int],

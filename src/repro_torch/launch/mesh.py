@@ -7,14 +7,17 @@ one host can carry: NCCL when every rank has a card of its own, else
 Gloo, whose CUDA path covers the all-reduce and broadcast that the
 data-parallel step needs, so several ranks may time-share one card.  The
 H100 SXM data-sheet figures below are the port's roofline constants.
-``make_production_mesh`` (the 16x16 and 2x16x16 meshes) and
-``mesh_chip_count`` (read by the dry run) wait for ROADMAP Queue 1 item
-10b.
+``fake_process_group`` gives one process the ranks of a larger world for
+tracing (collectives are recorded, nothing moves): the scenario recorder
+traces rank 0 of 8 that way.  ``make_production_mesh`` (the 16x16 and
+2x16x16 meshes) and ``mesh_chip_count`` arrive with their first reader,
+the dry run (ROADMAP Queue 1 item 10b).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.distributed as dist
@@ -50,6 +53,24 @@ def init_group(rank: int, world: int, init_method: str,
         backend, init_method=init_method, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout_s))
     return backend
+
+
+@contextlib.contextmanager
+def fake_process_group(world: int, rank: int = 0) -> Iterator[None]:
+    """Rank ``rank`` of a ``world``-rank process group inside this one
+    process (PyTorch's fake backend: a collective completes at once and
+    moves nothing), for tracing a rank's program over fake tensors.  The
+    group is destroyed on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_process_group: a process group is "
+                           "already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(model_axis: int = 1, device: torch.device | str = "cuda"):

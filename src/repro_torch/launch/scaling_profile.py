@@ -5,7 +5,9 @@ The twin of the JAX package's ``repro.launch.scaling_profile``, the
 paper's four-step usage (§V):
 
   1. *ScalAna-static*  — PSG from the traced train step, its gradient
-     all-reduce a Comm vertex.
+     all-reduce a Comm vertex at the root (the step's one collective for
+     a config without experts; an MoE step also all-reduces its
+     load-balance means once a layer, inside the layer loop).
   2. *ScalAna-prof*    — run the instrumented data-parallel step at
      several job scales: scale n is n worker processes in one process
      group (rendezvous through a file), each running the step on its

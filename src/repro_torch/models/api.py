@@ -4,7 +4,10 @@ The bundle exposes the JAX package's entry points (init, train_loss,
 prefill, decode_step, init_cache) on torch tensors, for every family the
 JAX package builds: dense, moe and vlm (the transformer), ssm, hybrid
 and encdec.  Everything runs on ``cuda`` unless ``device="cpu"`` is
-asked for.
+asked for.  Like the reference's, the bundle gives the launcher the
+abstract parameters and inputs of a cell and their partition specs; its
+abstract tensors live on the ``meta`` device, the parameters as this
+rank's shards under the active rules.
 """
 from __future__ import annotations
 
@@ -14,9 +17,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.models import encdec, hybrid, ssm_lm, transformer
-from repro_torch.models.params import Specs, init_params, param_count
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.distributed.axes import use_rules
+from repro_torch.models import encdec, hybrid, mamba2, ssm_lm, transformer
+from repro_torch.models.attention import KVCache
+from repro_torch.models.params import (Specs, abstract_params, init_params,
+                                       param_count, param_specs_tree)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +38,70 @@ class ModelBundle:
 
     def param_count(self) -> int:
         return param_count(self.specs)
+
+    def abstract_params(self):
+        """The parameters on the ``meta`` device: this rank's shards
+        under the active rules."""
+        return abstract_params(self.specs, self.cfg.pdtype())
+
+    def param_partition_specs(self):
+        """PartitionSpec tree (resolved against the active mesh/rules)."""
+        return param_specs_tree(self.specs)
+
+    def cache_specs(self, batch: int, max_len: int):
+        """The serving cache's whole shapes on the ``meta`` device."""
+        with use_rules(None):
+            return self.init_cache(batch, max_len, "meta")
+
+    # ------------------------------------------------------------------
+    # Abstract inputs for one (arch x shape) cell, global shapes on the
+    # meta device.  Token batches carry S+1 tokens for train.
+    # ------------------------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def t(*dims, dtype=torch.long):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if shape.kind == "decode":
+            return {"tokens": t(B, 1), "cache": self.cache_specs(B, S)}
+        batch = {"tokens": t(B, S + 1 if shape.kind == "train" else S)}
+        if cfg.family == "encdec":
+            batch["frames"] = t(B, cfg.frontend_len, cfg.d_model,
+                                dtype=cfg.cdtype())
+        if cfg.family == "vlm":
+            batch["patches"] = t(B, cfg.frontend_len, cfg.d_model,
+                                 dtype=cfg.cdtype())
+        return batch
+
+    def input_logical_axes(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Logical axes matching input_specs (resolved by the launcher)."""
+        cfg = self.cfg
+        axes: Dict[str, Any] = {"tokens": ("batch", "seq")}
+        if shape.kind != "decode":
+            if cfg.family == "encdec":
+                axes["frames"] = ("batch", "frontend", "embed")
+            if cfg.family == "vlm":
+                axes["patches"] = ("batch", "frontend", "embed")
+            return axes
+        kv_axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+        ssm_ax = mamba2.SSMState(("layers", "batch", None, "ssm_inner"),
+                                 ("layers", "batch", "ssm_heads", None, None))
+        if cfg.family in ("dense", "moe", "vlm"):
+            cache_ax = transformer.LMCache(KVCache(kv_axes, kv_axes,
+                                                   ("batch",)))
+        elif cfg.family == "encdec":
+            cross = ("layers", "batch", "frontend", "kv_heads", None)
+            cache_ax = encdec.EncDecCache(KVCache(kv_axes, kv_axes,
+                                                  ("batch",)), cross, cross)
+        elif cfg.family == "ssm":
+            cache_ax = ssm_lm.SSMCache(ssm_ax, ("batch",))
+        else:
+            site_kv = (None, "batch", "kv_seq", "kv_heads", None)
+            cache_ax = hybrid.HybridCache(ssm_ax, site_kv, site_kv,
+                                          ("batch",))
+        return {"tokens": ("batch", None), "cache": cache_ax}
 
     def generator(self, seed: int) -> torch.Generator:
         """A generator on the bundle's device seeded with ``seed``, for
@@ -65,11 +135,14 @@ def build_model(cfg: ArchConfig,
     train_loss = functools.partial(module.train_loss, cfg)
     if module is transformer:
         train_loss = functools.partial(train_loss, moe_strategy=moe_strategy)
+    def init_cache(b, s, device=dev):
+        return module.init_cache(cfg, b, s, cdt, device)
+
     return ModelBundle(
         cfg=cfg, specs=specs, device=dev,
         init=lambda generator: init_params(specs, generator, pdt),
         train_loss=train_loss,
         prefill=functools.partial(module.prefill, cfg),
         decode_step=functools.partial(module.decode_step, cfg),
-        init_cache=lambda b, s: module.init_cache(cfg, b, s, cdt, dev),
+        init_cache=init_cache,
     )

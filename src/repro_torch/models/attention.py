@@ -4,10 +4,14 @@ The einsum formulation below is the plain path; the hand-written CUDA
 flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`) is
 the training path's drop-in behind ``cfg.use_kernels``.
 
-The JAX package's sharding hints (``logical_constraint``,
-``weight_constraint``) are identities under a data-parallel mesh and are
-left out; they come back with tensor parallelism (ROADMAP Queue 1 item
-10b).
+Under a ``model`` axis (:func:`heads`) a rank computes the query heads of
+its ``wq`` columns and the K/V heads they read, and the output
+projection's partial sums over its ``wo`` rows are all-reduced.  Where
+``kv_features`` splits into whole K/V heads the rank holds those; where
+it splits inside a head (n_kv_heads does not divide the axis) the
+``wk``/``wv`` shards are gathered at use and every rank computes every
+K/V head, its query heads reading theirs by global index.  Flash and the
+plain path run on the local heads unchanged.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.psg import scan
+from repro_torch.distributed import axes as ax
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rotary, rotary_embedding
 from repro_torch.models.params import P
@@ -34,17 +39,91 @@ def attention_specs(cfg: ArchConfig) -> Dict[str, P]:
     }
 
 
+class Heads(NamedTuple):
+    """The attention heads one rank computes under the active rules."""
+    tp: bool        # query heads split on the model axis
+    nq: int         # query heads of this rank
+    q0: int         # global index of its first
+    nkv: int        # K/V heads it computes and caches
+    kv: str         # "local": whole K/V heads of its own; "gather": wk/wv
+    #                 split inside a head, gathered; "whole": not split
+
+
+def heads(cfg: ArchConfig) -> Heads:
+    """This rank's heads: every head without a ``model`` axis; else the
+    query heads of its ``q_features`` shard and the K/V heads of its
+    ``kv_features`` shard, or every K/V head where those do not split
+    into whole heads."""
+    d, h = cfg.d_model, cfg.resolved_head_dim()
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    qd = ax.model_dim(("embed", "q_features"), (d, nq * h))
+    kd = ax.model_dim(("embed", "kv_features"), (d, nkv * h))
+    if qd is None:
+        if kd is not None:
+            raise NotImplementedError(
+                "whole query heads with split K/V on torch is ROADMAP "
+                "Queue 1 item 10b")
+        return Heads(False, nq, 0, nkv, "whole")
+    m = ax.model_size()
+    if nq % m:
+        raise NotImplementedError(
+            f"{nq} query heads on a model axis of {m}: a head split on "
+            "torch is ROADMAP Queue 1 item 10b")
+    local = nq // m
+    if kd is not None and nkv % m == 0:
+        return Heads(True, local, ax.model_rank() * local, nkv // m, "local")
+    return Heads(True, local, ax.model_rank() * local, nkv,
+                 "gather" if kd is not None else "whole")
+
+
 def qkv(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
         positions: torch.Tensor
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> q (B,S,nq,h), k/v (B,S,nkv,h), rotary applied."""
+    """x: (B, S, D) -> q (B,S,nq,h), k/v (B,S,nkv,h), rotary applied:
+    this rank's query heads and the K/V heads it computes (:func:`heads`)."""
     B, S, _ = x.shape
     h = cfg.resolved_head_dim()
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, h)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, h)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, h)
+    hd = heads(cfg)
+    wk, wv = p["wk"], p["wv"]
+    if hd.tp:
+        x = ax.copy_to_model(x)
+        if hd.kv == "gather":
+            wk, wv = ax.gather_from_model(wk, 1), ax.gather_from_model(wv, 1)
+        elif hd.kv == "whole":
+            wk, wv = ax.copy_to_model(wk), ax.copy_to_model(wv)
+    q = (x @ p["wq"]).reshape(B, S, hd.nq, h)
+    k = (x @ wk).reshape(B, S, hd.nkv, h)
+    v = (x @ wv).reshape(B, S, hd.nkv, h)
     cos, sin = rotary_embedding(positions, h, cfg.rope_theta, x.dtype)
     return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
+
+
+def kv_for_heads(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K/V heads (dim 2) that this rank's query heads read, from the
+    K/V heads it computes."""
+    hd = heads(cfg)
+    if hd.kv == "local" or not hd.tp:
+        return k, v
+    g = cfg.n_heads // cfg.n_kv_heads
+    if hd.nq % g == 0:
+        sl = slice(hd.q0 // g, (hd.q0 + hd.nq) // g)
+    elif g % hd.nq == 0:
+        sl = slice(hd.q0 // g, hd.q0 // g + 1)
+    else:
+        raise NotImplementedError(
+            f"{hd.nq} query heads a rank in groups of {g} on torch is "
+            "ROADMAP Queue 1 item 10b")
+    return k[:, :, sl], v[:, :, sl]
+
+
+def out_proj(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+             out: torch.Tensor) -> torch.Tensor:
+    """(B, S, nq, h) -> (B, S, D): ``@ wo``, its partial sums over the
+    ``model`` ranks' heads all-reduced."""
+    B, S = out.shape[:2]
+    y = out.reshape(B, S, -1) @ p["wo"]
+    return ax.reduce_from_model(y) if heads(cfg).tp else y
 
 
 def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,12 +212,13 @@ def attention_train(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = qkv(cfg, p, x, positions)
+    k, v = kv_for_heads(cfg, k, v)
     scale = cfg.resolved_head_dim() ** -0.5
     if cfg.use_kernels:
         out = flash_attention(q, k, v, causal=causal, softmax_scale=scale)
     else:
         out = attend(q, k, v, causal=causal, softmax_scale=scale)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return out_proj(cfg, p, out)
 
 
 def cross_attention_train(cfg: ArchConfig, p: Dict[str, torch.Tensor],
@@ -169,8 +249,9 @@ class KVCache(NamedTuple):
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, n_layers: int,
                   dtype: torch.dtype, device) -> KVCache:
+    """Zero caches of the K/V heads this rank computes (:func:`heads`)."""
     h = cfg.resolved_head_dim()
-    shape = (n_layers, batch, max_len, cfg.n_kv_heads, h)
+    shape = (n_layers, batch, max_len, heads(cfg).nkv, h)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros((batch,), dtype=torch.int32, device=device))
@@ -191,7 +272,7 @@ def attention_decode(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     query sees positions ``<= lengths``.
     Returns (out (B,1,D), k_cache, v_cache).
     """
-    B, one, _ = x.shape
+    B = x.shape[0]
     S_max = k_cache.shape[1]
     positions = lengths[:, None]                                    # (B, 1)
     q, k, v = qkv(cfg, p, x, positions)
@@ -204,7 +285,6 @@ def attention_decode(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     slots = torch.arange(S_max, device=x.device)[None, :]
     valid = slots <= lengths[:, None]                               # (B, S_max)
     mask = valid[:, None, None, None, :]                            # b k g s t
-    out = gqa_attend(q, k_cache, v_cache, mask,
+    out = gqa_attend(q, *kv_for_heads(cfg, k_cache, v_cache), mask,
                      softmax_scale=cfg.resolved_head_dim() ** -0.5)
-    out = out.reshape(B, one, -1) @ p["wo"]
-    return out, k_cache, v_cache
+    return out_proj(cfg, p, out), k_cache, v_cache

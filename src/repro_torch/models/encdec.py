@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.psg import scan
+from repro_torch.distributed.axes import active_mesh, require_data_parallel
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     chunked_cross_entropy,
@@ -95,6 +96,7 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
     """Mean next-token cross-entropy of the decoder over
     ``batch["tokens"]`` (B, S + 1) given ``batch["frames"]`` (B, T, D);
     labels below 0 are masked out.  Returns (loss, metrics)."""
+    require_data_parallel(active_mesh(), "the encoder-decoder family")
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     enc_out = encode(cfg, params, batch["frames"].to(
@@ -137,6 +139,7 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any],
     """Encode the frames and run the decoder over the prompt, priming the
     self K/V (``max_len`` positions, zeros after S) and each layer's
     projected cross K/V.  Returns (last-position logits, cache)."""
+    require_data_parallel(active_mesh(), "the encoder-decoder family")
     tokens = batch["tokens"]
     B, S = tokens.shape
     enc_out = encode(cfg, params, batch["frames"].to(
@@ -178,6 +181,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: EncDecCache,
     the cache one token longer).  Each layer's new self K/V is written into
     the cache's buffers in place (``attention_decode``); the cross K/V are
     read as they are."""
+    require_data_parallel(active_mesh(), "the encoder-decoder family")
     kv = cache.self_kv
     x = embed_tokens(params["embed"], tokens)
     hd = cfg.resolved_head_dim()

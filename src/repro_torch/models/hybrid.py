@@ -3,7 +3,9 @@
 The shared attention+MLP block (a single parameter set) is applied every
 ``attn_every`` layers.  The reference's layer scan is
 :func:`repro_torch.core.psg.scan` with each block checkpointed under
-``cfg.remat``; its ``lax.cond`` is a Python ``if`` in the body.  Training
+``cfg.remat``; its ``lax.cond`` is :func:`repro_torch.core.psg.cond`, so
+the PSG nests a Branch vertex in the layer Loop, as the reference's does:
+exactly the control structure the paper's backtracking walks through.  Training
 attention is ``attention_train`` (the flash kernel under
 ``cfg.use_kernels``); prefill's is ``attend`` (einsum or chunked), as in
 the reference.
@@ -15,7 +17,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.psg import scan
+from repro_torch.core.psg import cond, scan
+from repro_torch.distributed.axes import active_mesh, require_data_parallel
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (
@@ -68,8 +71,9 @@ def backbone_train(cfg: ArchConfig, params: Dict[str, Any],
     """All layers over embedded input x: (B, S, D); final-normed."""
     def body(x, xs):
         p, idx = xs
-        if idx % cfg.attn_every == 0:
-            x = _shared_block_train(cfg, params["shared"], x)
+        x = cond(idx % cfg.attn_every == 0,
+                 lambda v: _shared_block_train(cfg, params["shared"], v),
+                 lambda v: v, x, name="shared")
         return x + mamba2.ssd_block_train(
             cfg, p["ssd"], rms_norm(x, p["norm"], cfg.norm_eps)), None
 
@@ -84,6 +88,7 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy over ``batch["tokens"]`` (B, S + 1);
     labels below 0 are masked out.  Returns (loss, metrics)."""
+    require_data_parallel(active_mesh(), "the hybrid family")
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     x = embed_tokens(params["embed"], inputs)
@@ -138,15 +143,17 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: HybridCache,
     K/V buffers in place (one slot a row, ``attention_decode``); the SSM
     states are new tensors, stacked afresh, so the caller's states are
     left as they are."""
+    require_data_parallel(active_mesh(), "the hybrid family")
     shared = params["shared"]
     x = embed_tokens(params["embed"], tokens)
     convs, hs = [], []
     for idx in range(cfg.n_layers):
         p = layer_params(params["layers"], idx)
-        if idx % cfg.attn_every == 0:
-            site = idx // cfg.attn_every
-            x = _shared_block_decode(cfg, shared, x, cache.k[site],
-                                     cache.v[site], cache.length)
+        site = idx // cfg.attn_every
+        x = cond(idx % cfg.attn_every == 0,
+                 lambda v: _shared_block_decode(cfg, shared, v, cache.k[site],
+                                                cache.v[site], cache.length),
+                 lambda v: v, x, name="shared")
         y, (conv_s, h) = mamba2.ssd_block_decode(
             cfg, p["ssd"], rms_norm(x, p["norm"], cfg.norm_eps),
             (cache.ssm.conv[idx], cache.ssm.h[idx]))
@@ -166,6 +173,7 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any],
     """Chunked prefill: SSD chunk scan per layer + shared-attn KV capture
     into K/V buffers of ``max_len`` positions that this function allocates
     and fills in place, site by site (zeros after position S)."""
+    require_data_parallel(active_mesh(), "the hybrid family")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(params["embed"], tokens)
@@ -176,18 +184,23 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any],
     vbuf = torch.zeros_like(kbuf)
     positions = torch.arange(S, device=x.device)[None, :]
     convs, hs = [], []
+    def shared_block(x, site):
+        xn = rms_norm(x, shared["attn_norm"], cfg.norm_eps)
+        q, k, v = attn.qkv(cfg, shared["attn"], xn, positions)
+        o = attn.attend(q, k, v, causal=True, softmax_scale=hd ** -0.5)
+        x = x + o.reshape(B, S, -1) @ shared["attn"]["wo"]
+        x = x + mlp_apply(cfg, shared["mlp"],
+                          rms_norm(x, shared["mlp_norm"], cfg.norm_eps))
+        kbuf[site, :, :S] = k
+        vbuf[site, :, :S] = v
+        return x
+
     for idx in range(cfg.n_layers):
         p = layer_params(params["layers"], idx)
-        if idx % cfg.attn_every == 0:
-            site = idx // cfg.attn_every
-            xn = rms_norm(x, shared["attn_norm"], cfg.norm_eps)
-            q, k, v = attn.qkv(cfg, shared["attn"], xn, positions)
-            o = attn.attend(q, k, v, causal=True, softmax_scale=hd ** -0.5)
-            x = x + o.reshape(B, S, -1) @ shared["attn"]["wo"]
-            x = x + mlp_apply(cfg, shared["mlp"],
-                              rms_norm(x, shared["mlp_norm"], cfg.norm_eps))
-            kbuf[site, :, :S] = k
-            vbuf[site, :, :S] = v
+        site = idx // cfg.attn_every
+        x = cond(idx % cfg.attn_every == 0,
+                 lambda v: shared_block(v, site), lambda v: v, x,
+                 name="shared")
         y, (conv_s, h) = mamba2.ssd_block_train(
             cfg, p["ssd"], rms_norm(x, p["norm"], cfg.norm_eps),
             return_state=True)

@@ -3,6 +3,16 @@ embedding and chunked cross-entropy.
 
 Weights keep the JAX package's ``(in, out)`` layout: a projection is
 ``x @ w``.
+
+Under a ``model`` axis (:mod:`repro_torch.distributed.axes`) a rank holds
+its shards, split as the reference's rules split them: the MLP's
+``w_gate``/``w_up`` by columns and ``w_down`` by rows (one all-reduce),
+the embedding by ``vocab`` rows (ids outside the rank's range give zero,
+one all-reduce), and the unembedding by ``vocab`` columns, whose
+cross-entropy is a vocab-parallel logsumexp per chunk (an all-reduce of
+the max, of the sum of exponentials and of the picked logit).  The
+embedding helpers take the config for that (``cfg=``); without it, or
+where the rules leave a weight whole, they are the one-card code.
 """
 from __future__ import annotations
 
@@ -13,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.psg import scan
+from repro_torch.distributed import axes as ax
 from repro_torch.models.params import P
 
 
@@ -66,6 +77,10 @@ def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict[str, P]:
 
 def mlp_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
+    """The MLP; column- then row-parallel where the rules split ``mlp``."""
+    tp = ax.model_dim(("embed", "mlp"), (cfg.d_model, cfg.d_ff)) is not None
+    if tp:
+        x = ax.copy_to_model(x)
     w_up = p["w_up"]
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ w_up)
@@ -75,7 +90,8 @@ def mlp_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
         h = torch.square(F.relu(x @ w_up))
     else:  # gelu
         h = F.gelu(x @ w_up, approximate="tanh")
-    return h @ p["w_down"]
+    y = h @ p["w_down"]
+    return ax.reduce_from_model(y) if tp else y
 
 
 # ---------------------------------------------------------------------------
@@ -90,26 +106,50 @@ def embed_specs(cfg: ArchConfig) -> Dict[str, P]:
     return specs
 
 
-def embed_tokens(p: Dict[str, torch.Tensor],
-                 tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["embedding"])
+def vocab_shard(cfg: Optional[ArchConfig]) -> Optional[Tuple[int, int]]:
+    """(first id, count) of this rank's ``vocab`` shard where the rules
+    split the vocabulary on ``model``, else None."""
+    if cfg is None or ax.model_dim(("vocab", "embed"),
+                                   (cfg.vocab_size, cfg.d_model)) is None:
+        return None
+    n = cfg.vocab_size // ax.model_size()
+    return ax.model_rank() * n, n
+
+
+def embed_tokens(p: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                 cfg: Optional[ArchConfig] = None) -> torch.Tensor:
+    shard = vocab_shard(cfg)
+    if shard is None:
+        return F.embedding(tokens, p["embedding"])
+    v0, n = shard
+    mine = (tokens >= v0) & (tokens < v0 + n)
+    x = F.embedding(torch.where(mine, tokens - v0, 0), p["embedding"])
+    return ax.reduce_from_model(x * mine[..., None].to(x.dtype))
 
 
 def unembed_matrix(p: Dict[str, torch.Tensor]) -> torch.Tensor:
     return p["unembed"] if "unembed" in p else p["embedding"].T
 
 
-def logits_for(p: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
-    return h @ unembed_matrix(p)
+def logits_for(p: Dict[str, torch.Tensor], h: torch.Tensor,
+               cfg: Optional[ArchConfig] = None) -> torch.Tensor:
+    """Every id's logit (the ranks' ``vocab`` columns gathered)."""
+    logits = h @ unembed_matrix(p)
+    if vocab_shard(cfg) is None:
+        return logits
+    return ax.gather_from_model(logits, logits.dim() - 1)
 
 
 def chunked_cross_entropy(p: Dict[str, torch.Tensor], hidden: torch.Tensor,
                           labels: torch.Tensor, mask: torch.Tensor,
-                          chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                          chunk: int, cfg: Optional[ArchConfig] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy without materializing (B, S, V): a loop over sequence
     chunks of ``chunk`` positions (:func:`~repro_torch.core.psg.scan`,
     named ``loss_chunks``), each a float32 logsumexp, summed in chunk
-    order with the remainder chunk added last, outside the loop.
+    order with the remainder chunk added last, outside the loop.  Where
+    the rules split ``vocab`` (``cfg`` given), each chunk's logsumexp and
+    picked logit are the vocab-parallel ones.
 
     Returns (sum_loss, sum_count) as float32 scalars; caller divides.
     """
@@ -118,11 +158,27 @@ def chunked_cross_entropy(p: Dict[str, torch.Tensor], hidden: torch.Tensor,
     n = S // chunk
     rem = S - n * chunk
     w = unembed_matrix(p)
+    shard = vocab_shard(cfg)
+    if shard is not None:
+        hidden = ax.copy_to_model(hidden)
+
+    def lse_picked(logits, y_c):
+        if shard is None:
+            return (torch.logsumexp(logits, dim=-1),
+                    torch.gather(logits, -1, y_c[..., None].long())[..., 0])
+        v0, nv = shard
+        top = ax.all_reduce_max(torch.amax(logits.detach(), dim=-1))
+        total = ax.reduce_from_model(
+            torch.sum(torch.exp(logits - top[..., None]), dim=-1))
+        mine = (y_c >= v0) & (y_c < v0 + nv)
+        local = torch.where(mine, y_c - v0, 0)
+        picked = torch.gather(logits, -1, local[..., None].long())[..., 0]
+        picked = ax.reduce_from_model(picked * mine.to(picked.dtype))
+        return torch.log(total) + top, picked
 
     def one(h_c, y_c, m_c):
         logits = (h_c @ w).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+        lse, picked = lse_picked(logits, y_c)
         losses = (lse - picked) * m_c
         return torch.sum(losses), torch.sum(m_c)
 

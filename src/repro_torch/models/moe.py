@@ -8,10 +8,17 @@ Two dispatch strategies, as in the reference:
 * ``sort``   — sort-by-expert gather/scatter dispatch.
 
 Capacity-based token dropping, the switch load-balance loss and the router
-z-loss are implemented for both.  The reference's sharding hints
-(``logical_constraint``, ``weight_constraint``) are identities on one
-card and are left out.  No kernel is hand-written here: the products are
-``torch.einsum`` / ``torch.bmm``.
+z-loss are implemented for both.  The load-balance loss's per-expert
+means are taken over the whole batch: under a mesh, one all-reduce over
+the batch axes a layer (:func:`repro_torch.distributed.axes.batch_mean`),
+the 2E floats GSPMD inserts for the reference's ``jnp.mean``.  No kernel
+is hand-written here: the products are ``torch.einsum`` / ``torch.bmm``.
+
+Under a ``model`` axis the experts are split by their ``experts`` dim
+(or, where that does not divide the axis, each expert's FFN by ``mlp``).
+Tokens are replicated across ``model``: every rank routes every token
+with the whole router (its shards gathered at use), runs its own
+experts' buffers, and the combine's partial sums are all-reduced.
 
 Ordering rules kept from the reference: ``jax.lax.top_k`` puts the lower
 expert first among equal probabilities, so top-k is a stable descending
@@ -25,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import axes as ax
 from repro_torch.models.params import P
 
 CAPACITY_FACTOR = 1.25
@@ -56,12 +64,39 @@ def _expert_ffn(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     return torch.bmm(h, p["w_down"])
 
 
+def _tensor_parallel(cfg: ArchConfig) -> bool:
+    """Whether the active rules split the experts' weights on ``model``."""
+    return ax.model_dim(("experts", "embed", "mlp"),
+                        (cfg.n_experts, cfg.d_model, cfg.d_ff)) is not None
+
+
+def _local_experts(cfg: ArchConfig, p: Dict[str, torch.Tensor]
+                   ) -> Tuple[int, int]:
+    """(first expert, count) of this rank's expert weights."""
+    n = p["w_up"].shape[0]
+    if ax.model_dim(("experts", "embed", "mlp"),
+                    (cfg.n_experts, cfg.d_model, cfg.d_ff)) == 0:
+        return ax.model_rank() * n, n
+    return 0, n
+
+
+def _router(cfg: ArchConfig, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The whole (D, E) router: its ``experts`` shards gathered at use
+    under a ``model`` axis; a whole router's gradient summed over it."""
+    w = p["router"]
+    if not _tensor_parallel(cfg):
+        return w
+    if ax.model_dim(("embed", "experts"), (cfg.d_model, cfg.n_experts)) == 1:
+        return ax.gather_from_model(w, 1)
+    return ax.copy_to_model(w)
+
+
 def _routing(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor):
     """Router probabilities and top-k selection.
 
     x: (T, D). Returns (weights (T,k), experts (T,k), aux_loss, z_loss).
     """
-    logits = (x @ p["router"]).float()                       # (T, E)
+    logits = (x @ _router(cfg, p)).float()                   # (T, E)
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k: largest first, the lower index first among ties
     top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -73,8 +108,11 @@ def _routing(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor):
     me = torch.mean(probs, dim=0)                      # mean prob / expert
     ce = torch.mean(torch.sum(F.one_hot(top_e, E).float(), dim=1),
                     dim=0) / k                         # frac tokens / expert
+    me, ce = ax.batch_mean(torch.stack([me, ce])).unbind(0)
     aux = E * torch.sum(me * ce)
     z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    if _tensor_parallel(cfg):        # every model rank holds both whole
+        aux, z = ax.model_grad_share(aux), ax.model_grad_share(z)
     return top_w, top_e, aux, z
 
 
@@ -109,11 +147,15 @@ def moe_apply_einsum(cfg: ArchConfig, p: Dict[str, torch.Tensor],
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Grouped dispatch/combine einsum formulation. x: (B,S,D)."""
     B, S, D = x.shape
+    tp = _tensor_parallel(cfg)
+    if tp:
+        x = ax.copy_to_model(x)
     xg, gs = _group_tokens(cfg, x)                           # (B,G,gs,D)
     G = xg.shape[1]
     xf = xg.reshape(B * G * gs, D)
     top_w, top_e, aux, z = _routing(cfg, p, xf)
     E, k = cfg.n_experts, cfg.experts_per_token
+    e0, El = _local_experts(cfg, p)
     C = _capacity(cfg, gs, capacity_factor)
     top_w = top_w.reshape(B, G, gs, k)
     top_e = top_e.reshape(B, G, gs, k)
@@ -126,9 +168,11 @@ def moe_apply_einsum(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     keep = pos < C
     w = top_w * keep.to(top_w.dtype)
 
-    # dispatch (gs,E,C) one-hot and combine weights, per group.  A token's
-    # k experts differ, so each (s, e, c) sums one nonzero term over k:
-    # folding w into the one-hot first gives the reference's values
+    # dispatch (gs,E,C) one-hot and combine weights, per group, for this
+    # rank's experts.  A token's k experts differ, so each (s, e, c) sums
+    # one nonzero term over k: folding w into the one-hot first gives the
+    # reference's values
+    onehot = onehot[..., e0:e0 + El]
     pos_oh = F.one_hot(torch.where(keep, pos, C), C + 1)[..., :C]
     disp = torch.einsum("bgske,bgskc->bgsec", onehot.to(x.dtype),
                         pos_oh.to(x.dtype))                  # (B,G,gs,E,C)
@@ -140,6 +184,8 @@ def moe_apply_einsum(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     ye = _expert_ffn_grouped(cfg, p, xe)
     y = torch.einsum("bgsec,bgecd->bgsd", comb, ye)
     y = y.reshape(B, S, D)
+    if tp:
+        y = ax.reduce_from_model(y)
     keepf = torch.mean(keep.float())
     metrics = {"moe_aux_loss": aux, "moe_z_loss": z,
                "moe_drop_frac": 1.0 - keepf}
@@ -177,12 +223,16 @@ def moe_apply_sort(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     dropped slot wrote is read back only with weight 0.
     """
     B, S, D = x.shape
+    tp = _tensor_parallel(cfg)
+    if tp:
+        x = ax.copy_to_model(x)
     xg, gs = _group_tokens(cfg, x)                           # (B,G,gs,D)
     G = xg.shape[1]
     n = B * G
     xf = xg.reshape(n * gs, D)
     top_w, top_e, aux, z = _routing(cfg, p, xf)
     E, k = cfg.n_experts, cfg.experts_per_token
+    e0, El = _local_experts(cfg, p)
     C = _capacity(cfg, gs, capacity_factor)
     dev = x.device
 
@@ -195,29 +245,36 @@ def moe_apply_sort(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     pos_in_e = (torch.arange(gs * k, device=dev)[None, :]
                 - torch.gather(starts, 1, sorted_e))
     keep = pos_in_e < C
-    dest = sorted_e * C + torch.where(keep, pos_in_e, C)     # C -> overflow
+    # this rank's experts' buffers; a slot of another rank's expert goes
+    # to the overflow row, like a dropped one, and weighs 0
+    mine = (sorted_e >= e0) & (sorted_e < e0 + El)
+    used = keep & mine
+    dest = torch.where(used, (sorted_e - e0) * C + pos_in_e, El * C)
     token_of_slot = order // k
     offset = torch.arange(n, device=dev)[:, None]
-    rows = offset * (E * C + 1) + dest                       # group's buffer
+    rows = offset * (El * C + 1) + dest                      # group's buffer
     tokens = offset * gs + token_of_slot                     # group's tokens
-    kept = keep.reshape(-1)
-    buf = torch.zeros((n * (E * C + 1), D), dtype=x.dtype, device=dev)
+    kept = used.reshape(-1)
+    buf = torch.zeros((n * (El * C + 1), D), dtype=x.dtype, device=dev)
     buf[rows.reshape(-1)[kept]] = xf[tokens.reshape(-1)[kept]]
-    buf = buf.reshape(n, E * C + 1, D)
-    xe = buf[:, :E * C].reshape(n, E, C, D)
-    ye = _expert_ffn_grouped(cfg, p, xe[None]).reshape(n, E * C, D)
+    buf = buf.reshape(n, El * C + 1, D)
+    xe = buf[:, :El * C].reshape(n, El, C, D)
+    ye = _expert_ffn_grouped(cfg, p, xe[None]).reshape(n, El * C, D)
     ye = torch.cat([ye, torch.zeros((n, 1, D), dtype=ye.dtype, device=dev)],
-                   dim=1).reshape(n * (E * C + 1), D)
+                   dim=1).reshape(n * (El * C + 1), D)
     back = ye[rows.reshape(-1)]                              # (n·gs·k, D)
     w_sorted = (torch.gather(top_w.reshape(n, gs * k), 1, order)
-                * keep.to(top_w.dtype)).reshape(-1)
+                * used.to(top_w.dtype)).reshape(-1)
     contrib = back * w_sorted[:, None].to(back.dtype)
     y = torch.zeros((n * gs, D), dtype=torch.float32, device=dev).index_add_(
         0, tokens.reshape(-1), contrib.float())
+    y = y.to(x.dtype).reshape(B, S, D)
+    if tp:
+        y = ax.reduce_from_model(y)
     keepf = torch.mean(keep.float(), dim=1)                  # per group
     metrics = {"moe_aux_loss": aux, "moe_z_loss": z,
                "moe_drop_frac": 1.0 - torch.mean(keepf)}
-    return y.to(x.dtype).reshape(B, S, D), metrics
+    return y, metrics
 
 
 SERVE_CAPACITY_FACTOR = 2.0     # serve-time: generous, dropless at small T

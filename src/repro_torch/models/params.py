@@ -8,6 +8,11 @@ logical axis names give the launch layer its partition specs
 
 Per-layer leaves keep the JAX package's stacked layout: one tensor with
 a leading ``n_layers`` axis per leaf; the layer loop takes views of it.
+
+Under a ``model`` axis of the active rules a rank holds each leaf's
+local shard (:func:`repro_torch.distributed.axes.local_shard`): fresh
+weights are drawn whole from the generator's stream and sliced, so a
+rank's shard is bit-equal to that slice of the one-process tensor.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.axes import spec_for
+from repro_torch.distributed.axes import local_shape, local_shard, spec_for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,9 +52,11 @@ def _fan_in(spec: P) -> int:
 def _init_leaf(gen: torch.Generator, spec: P, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype, device=device)
+        return torch.zeros(local_shape(spec.axes, spec.shape), dtype=dtype,
+                           device=device)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype, device=device)
+        return torch.ones(local_shape(spec.axes, spec.shape), dtype=dtype,
+                          device=device)
     if spec.init == "embed":
         scale = spec.scale if spec.scale is not None else 0.02
     else:
@@ -57,7 +64,7 @@ def _init_leaf(gen: torch.Generator, spec: P, dtype: torch.dtype,
             1.0 / math.sqrt(_fan_in(spec))
     x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return x.mul_(scale).to(dtype)
+    return local_shard(x.mul_(scale).to(dtype), spec.axes)
 
 
 def _walk(specs: Specs, path=()) -> Iterator[Tuple[Tuple[str, ...], P]]:
@@ -72,12 +79,31 @@ def init_params(specs: Specs, generator: torch.Generator,
                 dtype: torch.dtype) -> Dict[str, Any]:
     """Fresh parameters on the generator's device, leaf by leaf in sorted
     path order: zeros for norms, ``0.02 * N(0, 1)`` for embeddings,
-    ``N(0, 1) / sqrt(fan_in)`` for the rest.  The distributions are the
+    ``N(0, 1) / sqrt(fan_in)`` for the rest; this rank's shards under the
+    active rules.  The distributions are the
     JAX package's; the values are not (the generators differ), so parity
     tests carry the JAX parameters over with
     :func:`repro_torch.convert.params_from_reference`."""
     return _map_specs(specs, lambda spec: _init_leaf(generator, spec, dtype,
                                                      generator.device))
+
+
+def abstract_params(specs: Specs, dtype: torch.dtype) -> Dict[str, Any]:
+    """The parameters' shapes and dtype as tensors on the ``meta`` device
+    (no storage): this rank's shards under the active rules."""
+    return _map_specs(specs, lambda spec: torch.empty(
+        local_shape(spec.axes, spec.shape), dtype=dtype, device="meta"))
+
+
+def local_params(params: Dict[str, Any], specs: Specs) -> Dict[str, Any]:
+    """This rank's shards of whole ``params`` under the active rules."""
+    flat = dict(_walk(specs))
+
+    def go(tree, path):
+        return {k: go(v, path + (k,)) if isinstance(v, dict)
+                else local_shard(v, flat[path + (k,)].axes)
+                for k, v in tree.items()}
+    return go(params, ())
 
 
 def param_specs_tree(specs: Specs) -> Dict[str, Any]:

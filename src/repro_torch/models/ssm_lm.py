@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.psg import scan
+from repro_torch.distributed.axes import active_mesh, require_data_parallel
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (
     chunked_cross_entropy,
@@ -62,6 +63,7 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy over ``batch["tokens"]`` (B, S + 1);
     labels below 0 are masked out.  Returns (loss, metrics)."""
+    require_data_parallel(active_mesh(), "the SSM family")
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     x = embed_tokens(params["embed"], inputs)
@@ -91,6 +93,7 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any],
             ) -> Tuple[torch.Tensor, SSMCache]:
     """Process the full prompt; returns (last-position logits, the
     per-layer states)."""
+    require_data_parallel(active_mesh(), "the SSM family")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(params["embed"], tokens)
@@ -106,6 +109,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: SSMCache,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, SSMCache]:
     """One decode step. tokens: (B, 1) int; returns (logits (B, 1, V),
     the advanced states)."""
+    require_data_parallel(active_mesh(), "the SSM family")
     x = embed_tokens(params["embed"], tokens)
     convs, hs = [], []
     for i in range(cfg.n_layers):

@@ -8,6 +8,12 @@ each block checkpointed under ``cfg.remat`` as the reference's
 family's vision tower is a stub: ``batch["patches"]`` (B, Np, D) of
 precomputed patch embeddings, projected by ``patch_proj`` and prepended
 to the token stream; its loss is over the text positions only.
+
+Under a ``model`` axis every block runs on the rank's shards (attention
+heads, MLP columns, experts; :mod:`repro_torch.models.attention`,
+:mod:`~repro_torch.models.layers`, :mod:`~repro_torch.models.moe`), the
+embedding and the loss are vocab-parallel, and the residual stream, the
+norms and the VLM's patch projection are whole on every rank.
 """
 from __future__ import annotations
 
@@ -118,7 +124,7 @@ def _embed_inputs(cfg: ArchConfig, params: Dict[str, Any],
                   tokens: torch.Tensor) -> torch.Tensor:
     """The token embeddings, with the VLM family's projected patches
     prepended."""
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, cfg)
     if cfg.family == "vlm":
         patches = batch["patches"].to(x.dtype) @ params["patch_proj"]
         x = torch.cat([patches, x], dim=1)
@@ -140,7 +146,8 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
         h = h[:, batch["patches"].shape[1]:]
     mask = (labels >= 0).float()
     loss_sum, count = chunked_cross_entropy(
-        params["embed"], h, torch.clamp(labels, min=0), mask, cfg.loss_chunk)
+        params["embed"], h, torch.clamp(labels, min=0), mask, cfg.loss_chunk,
+        cfg)
     loss = loss_sum / torch.clamp(count, min=1.0)
     metrics = {"ce_loss": loss, "tokens": count}
     if cfg.family == "moe":
@@ -184,9 +191,9 @@ def _block_prefill(cfg: ArchConfig, x: torch.Tensor, p: Dict[str, Any],
     xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = attn.qkv(cfg, p["attn"], xn, positions)
-    o = attn.attend(q, k, v, causal=True,
+    o = attn.attend(q, *attn.kv_for_heads(cfg, k, v), causal=True,
                     softmax_scale=cfg.resolved_head_dim() ** -0.5)
-    h = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
+    h = x + attn.out_proj(cfg, p["attn"], o)
     out = h + _serve_ffn(cfg, p, rms_norm(h, p["mlp_norm"], cfg.norm_eps))
     pad = (0, 0, 0, 0, 0, max_len - S)          # zeros after position S
     return out, (F.pad(k, pad), F.pad(v, pad))
@@ -207,7 +214,7 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any],
         ks.append(k)
         vs.append(v)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_for(params["embed"], h[:, -1:, :])
+    logits = logits_for(params["embed"], h[:, -1:, :], cfg)
     lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, LMCache(attn.KVCache(torch.stack(ks), torch.stack(vs),
                                         lengths))
@@ -219,7 +226,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: LMCache,
     the cache one token longer).  Each layer's new K/V is written into the
     cache's buffers in place (``attention_decode``)."""
     kv = cache.kv
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):
         p = layer_params(params["layers"], i)
         xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
@@ -228,5 +235,5 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: LMCache,
         h = x + o
         x = h + _serve_ffn(cfg, p, rms_norm(h, p["mlp_norm"], cfg.norm_eps))
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_for(params["embed"], h)
+    logits = logits_for(params["embed"], h, cfg)
     return logits, LMCache(kv._replace(length=kv.length + 1))

@@ -156,22 +156,28 @@ class StepTrace:
         return sum(self.base.get(v, 0.0) for v in tops)
 
 
-def list_traces() -> List[str]:
-    return sorted(p.stem for p in TRACE_DIR.glob("*.json"))
+def list_traces(trace_dir: Optional[Path] = None) -> List[str]:
+    return sorted(p.stem for p in Path(trace_dir or TRACE_DIR).glob("*.json"))
 
 
-def load_trace(name: str) -> StepTrace:
-    path = TRACE_DIR / f"{name}.json"
+def load_trace(name: str, trace_dir: Optional[Path] = None) -> StepTrace:
+    """A trace by name from ``trace_dir`` (the committed traces when
+    None)."""
+    path = Path(trace_dir or TRACE_DIR) / f"{name}.json"
     if not path.exists():
         raise FileNotFoundError(
-            f"no committed trace {name!r} (have: {list_traces()}); "
-            f"record with `python -m repro.scenarios.record`")
+            f"no trace {name!r} in {path.parent} (have: "
+            f"{list_traces(trace_dir)}); record with "
+            f"`python -m repro_torch.scenarios.record --out-dir DIR`")
     return StepTrace.from_json(path.read_text())
 
 
-def save_trace(trace: StepTrace) -> Path:
-    TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    path = TRACE_DIR / f"{trace.name}.json"
+def save_trace(trace: StepTrace, trace_dir: Optional[Path] = None) -> Path:
+    """Write ``trace`` as ``<name>.json`` under ``trace_dir`` (the
+    committed traces' directory when None)."""
+    out = Path(trace_dir or TRACE_DIR)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{trace.name}.json"
     path.write_text(trace.to_json())
     return path
 

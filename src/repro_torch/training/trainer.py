@@ -9,10 +9,14 @@ no backward, as in the reference).
 
 Data parallelism is the step's own, not a compiler's: under
 :func:`repro_torch.distributed.axes.use_rules` with a mesh, the step
-averages its gradients and its loss over the mesh's ``data`` axis with
-one bucketed all-reduce, which the traced PSG holds as a Comm vertex.
-It does so at every scale, one rank included, so the PSGs of a scaling
-series have the same vertices.  Without a mesh it runs no collective.
+averages its gradients, its loss and its MoE metrics over the mesh's
+``data`` axis with one bucketed all-reduce, which the traced PSG holds
+as a Comm vertex at its root.  It does so at every scale, one rank
+included, so the PSGs of a scaling series have the same vertices.  Under
+a ``model`` axis each rank's bucket holds its own parameter shards and
+the all-reduce runs over its ``data`` group; the model's own collectives
+(tensor-parallel layers, the MoE load-balance means) sit inside the
+layer loop.  Without a mesh it runs no collective.
 
 ``Trainer`` is the twin of the reference's: data, the step, checkpoints
 and the ScalAna hooks (the sampled ``GraphProfiler``, per-step wall
@@ -36,10 +40,10 @@ from repro_torch.configs.base import ArchConfig, RunConfig, ShapeConfig
 from repro_torch.core.profiler import GraphProfiler
 from repro_torch.core.psg import scan
 from repro_torch.data import make_dataset
-from repro_torch.distributed.axes import (active_mesh, placements_for,
-                                          require_data_parallel, use_rules)
+from repro_torch.distributed import axes as ax
+from repro_torch.distributed.axes import active_mesh, placements_for, use_rules
 from repro_torch.models.api import ModelBundle, build_model
-from repro_torch.models.params import param_specs_tree
+from repro_torch.models.params import Specs, _walk, param_specs_tree
 from repro_torch.optim import adamw_init, adamw_update, warmup_cosine
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.compress import error_feedback_update, init_residual
@@ -56,26 +60,55 @@ class TrainState:
     step: torch.Tensor            # int32 scalar
 
 
-def data_parallel_mean(loss: torch.Tensor, grads: Tree, mesh
-                       ) -> Tuple[torch.Tensor, Tree]:
-    """The loss and gradients averaged over ``mesh``'s ``data`` axis: one
-    all-reduce of one float32 bucket (every gradient leaf, then the
-    loss), so the step has exactly one collective and its loss is the
-    global batch's mean.  Summed, then divided by the axis size: a sum is
-    the reduction every backend carries on CUDA tensors, Gloo's too (the
-    backend of several ranks on one card)."""
+# step metrics that are means over the rank's tokens: averaged with the
+# gradients (the MoE load-balance loss is already global, ``batch_mean``)
+DATA_MEAN_METRICS = ("moe_z_loss", "moe_drop_frac")
+
+
+def data_parallel_mean(loss: torch.Tensor, grads: Tree, mesh,
+                       metrics: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Tuple[torch.Tensor, Tree,
+                                  Dict[str, torch.Tensor]]:
+    """The loss, gradients and :data:`DATA_MEAN_METRICS` averaged over
+    ``mesh``'s ``data`` axis: one all-reduce of one float32 bucket (every
+    gradient leaf, the loss, then the metrics), so the step has exactly
+    one data-axis collective and its loss is the global batch's mean.
+    Summed, then divided by the axis size: a sum is the reduction every
+    backend carries on CUDA tensors, Gloo's too (the backend of several
+    ranks on one card).  Under a ``model`` axis the leaves are the rank's
+    shards and the group is its ``data`` group."""
     import torch.distributed._functional_collectives as funcol
-    require_data_parallel(mesh, "the data-parallel train step")
+    metrics = dict(metrics or {})
+    names = [k for k in DATA_MEAN_METRICS if k in metrics]
     gl = leaves(grads)
     flat = torch.cat([g.reshape(-1).float() for g in gl]
-                     + [loss.reshape(1).float()])
-    n = mesh["data"].size()
-    flat = funcol.all_reduce(flat, "sum", mesh.get_group("data")) / n
+                     + [loss.reshape(1).float()]
+                     + [metrics[k].reshape(1).float() for k in names])
+    n = ax.axis_sizes(mesh)["data"]
+    flat = funcol.all_reduce(flat, "sum", mesh.get_group("data"))
+    flat = flat.wait() if isinstance(flat, funcol.AsyncCollectiveTensor) \
+        else flat
+    flat.div_(n)                     # the sum is ours: one bucket, not two
     out, at = [], 0
     for g in gl:
         out.append(flat[at:at + g.numel()].reshape(g.shape).to(g.dtype))
         at += g.numel()
-    return flat[at].to(loss.dtype), unflatten_like(grads, out)
+    for i, k in enumerate(names):
+        metrics[k] = flat[at + 1 + i].to(metrics[k].dtype)
+    return flat[at].to(loss.dtype), unflatten_like(grads, out), metrics
+
+
+def model_parallel_norm(tree: Tree, specs: Specs) -> torch.Tensor:
+    """The global norm of a tree of this rank's shards (congruent with
+    ``specs``): the squares of the leaves split on ``model`` summed over
+    its ranks, the whole leaves' counted once."""
+    whole, split = [], []
+    for leaf, (_, spec) in zip(leaves(tree), _walk(specs)):
+        sq = torch.sum(torch.square(leaf.float()))
+        (whole if ax.model_dim(spec.axes, spec.shape) is None
+         else split).append(sq)
+    total = sum(whole) + ax.reduce_from_model(sum(split))
+    return torch.sqrt(total)
 
 
 def make_train_step(model: ModelBundle, run: RunConfig,
@@ -126,14 +159,18 @@ def make_train_step(model: ModelBundle, run: RunConfig,
         loss, metrics, grads = fn(state.params, batch)
         mesh = active_mesh()
         if mesh is not None:
-            loss, grads = data_parallel_mean(loss, grads, mesh)
+            loss, grads, metrics = data_parallel_mean(loss, grads, mesh,
+                                                      metrics)
         residual = state.residual
         if compress and residual is not None:
             grads, residual = error_feedback_update(grads, residual)
         lr = lr_fn(state.step)
+        norm = {}
+        if ax.model_size(mesh) > 1:
+            norm["norm_fn"] = lambda t: model_parallel_norm(t, model.specs)
         params, opt, opt_metrics = adamw_update(
             grads, state.opt, state.params, lr=lr,
-            weight_decay=run.weight_decay)
+            weight_decay=run.weight_decay, **norm)
         # "loss" last: under grad accumulation `metrics` carries the last
         # microbatch's values, but the step loss is the microbatch mean
         out = {**metrics, **opt_metrics, "loss": loss}
@@ -206,7 +243,8 @@ class Trainer:
     without a card.  With a ``mesh`` (a DeviceMesh over the process
     group, :func:`repro_torch.launch.mesh.make_host_mesh`) each rank
     reads its shard of the global batch and the step averages over the
-    ``data`` axis."""
+    ``data`` axis.  Checkpoints do not know ranks yet, so a ``model``
+    axis above 1 takes no ``checkpoint_dir``."""
 
     def __init__(self, run: RunConfig, *, mesh=None, rules=None,
                  arch_cfg: Optional[ArchConfig] = None,
@@ -214,6 +252,12 @@ class Trainer:
                  global_batch: Optional[int] = None,
                  inject_delay: Optional[Dict[int, float]] = None,
                  device: torch.device | str = "cuda"):
+        if (run.checkpoint_dir and mesh is not None
+                and ax.model_size(mesh) > 1):
+            raise NotImplementedError(
+                "checkpoints under a model axis above 1: every rank would "
+                "write its own shards to one directory; rank-aware "
+                "checkpoints are ROADMAP Queue 1 item 10b")
         self.run = run
         self.mesh = mesh
         self.rules = rules
@@ -241,8 +285,9 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> TrainState:
-        params = self.model.init(self.model.generator(
-            self.run.seed if seed is None else seed))
+        with self._rules():              # a rank's shards under a model axis
+            params = self.model.init(self.model.generator(
+                self.run.seed if seed is None else seed))
         residual = init_residual(params) if self.run.grad_compress else None
         return TrainState(params=params, opt=adamw_init(params),
                           residual=residual,

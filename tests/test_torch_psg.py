@@ -9,9 +9,12 @@ FLOPs rolled up into each and over the whole step against the JAX PSG's
 fact equal), and a ``file:line`` under ``src/repro_torch/`` on every
 vertex.  The same at a sequence that leaves a loss-chunk remainder
 (which belongs to no loop) and with ``remat`` off (the backward loops
-then come without a recompute).  Then the twins of ``tests/test_psg.py``
-on a toy scan, and its contraction property test on the port's copy of
-``contract``.
+then come without a recompute).  The zamba2 smoke step (tokens (2, 65), remat
+on and off) has the JAX PSG's Branch vertices: the shared block's
+``psg.cond`` nested in the forward layer Loop, and in the backward one
+(the transposed cond, and with remat the recompute's).  Then the twins
+of ``tests/test_psg.py`` on a toy scan and a toy cond, and its
+contraction property test on the port's copy of ``contract``.
 """
 import os
 
@@ -36,8 +39,9 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.convert import params_from_reference
 from repro_torch.core import costs
 from repro_torch.core.contraction import contract
-from repro_torch.core.graph import COMM, COMP, LOOP, PSG
-from repro_torch.core.psg import build_psg, scan, top_level_order, trace
+from repro_torch.core.graph import BRANCH, COMM, COMP, LOOP, PSG
+from repro_torch.core.psg import (build_psg, cond, scan, top_level_order,
+                                  trace)
 from repro_torch.models import build_model
 from repro_torch.optim import adamw_init, constant
 from repro_torch.training import TrainState, make_train_step
@@ -57,23 +61,23 @@ def weights():
                                          device="cpu")
 
 
-def _jax_psg(weights, seq, remat=True):
+def _jax_psg(weights, seq, remat=True, arch=ARCH, batch=4):
     _, jp, _ = weights
-    jm = jax_build(jax_smoke(ARCH).replace(remat=remat))
+    jm = jax_build(jax_smoke(arch).replace(remat=remat))
     state = JaxTrainState(params=jp, opt=jax_adamw_init(jp), residual=None,
                           step=jnp.zeros((), jnp.int32))
     step = jax_make_train_step(jm, JaxRunConfig(), jax_constant(1e-3))
-    return jax_build_psg(step, state, {"tokens": jnp.ones((4, seq),
+    return jax_build_psg(step, state, {"tokens": jnp.ones((batch, seq),
                                                           jnp.int32)})
 
 
-def _port_psg(weights, seq, remat=True):
+def _port_psg(weights, seq, remat=True, arch=ARCH, batch=4):
     _, _, tp = weights
-    model = build_model(get_smoke(ARCH).replace(remat=remat), device="cpu")
+    model = build_model(get_smoke(arch).replace(remat=remat), device="cpu")
     state = TrainState(tp, adamw_init(tp), None,
                        torch.zeros((), dtype=torch.int32))
     step = make_train_step(model, RunConfig(), constant(1e-3))
-    return build_psg(step, state, {"tokens": torch.ones((4, seq),
+    return build_psg(step, state, {"tokens": torch.ones((batch, seq),
                                                         dtype=torch.long)})
 
 
@@ -127,6 +131,62 @@ def test_step_psg_loops_name_their_source(weights):
     assert srcs[0] == srcs[3] and srcs[1] == srcs[2]   # forward = backward
 
 
+HYBRID = "zamba2-2.7b"
+
+
+@pytest.fixture(scope="module")
+def hybrid_weights():
+    jm = jax_build(jax_smoke(HYBRID))
+    jp = jm.init(jax.random.PRNGKey(0))
+    return jm, jp, params_from_reference(jax.tree.map(np.asarray, jp),
+                                         device="cpu")
+
+
+def _descendants(g, vid):
+    out, todo = [], list(g.children(vid))
+    while todo:
+        k = todo.pop()
+        out.append(k)
+        todo.extend(g.children(k))
+    return out
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "noremat"])
+def test_hybrid_step_psg_has_the_jax_branches(hybrid_weights, remat):
+    """zamba2's shared block through ``psg.cond``: with remat the JAX PSG
+    has 3 Branch vertices (the forward cond in the layer scan; in the
+    backward scan the recompute's and the transposed cond), 2 without.
+    The port's loop counters sum the real iterations (2 of the 4 run the
+    block), so the quantity compared is trip x body, the body being
+    iteration 0, which takes the block, as the JAX rollup counts it."""
+    jg = _jax_psg(hybrid_weights, 65, remat, HYBRID, batch=2)
+    tg = _port_psg(hybrid_weights, 65, remat, HYBRID, batch=2)
+    jb, tb = jg.by_kind(BRANCH), tg.by_kind(BRANCH)
+    assert len(tb) == len(jb) == (3 if remat else 2)
+    tloops = [v for v in top_level_order(tg) if tg.vertices[v].kind == LOOP]
+    jloops = [v for v in top_level_order(jg) if jg.vertices[v].kind == LOOP]
+    assert [tg.vertices[v].meta["trip_count"] for v in tloops] == \
+        [jg.vertices[v].meta["trip_count"] for v in jloops] == [4, 4, 4, 4]
+    for tv, jv in zip(tloops, jloops):
+        want = _matmul_flops(jg, jv, ("dot_general",))
+        assert want > 0
+        assert _matmul_flops(tg, tv, MATMULS) == pytest.approx(want, rel=1e-2)
+    fwd, bwd = (next(tg.vertices[v] for v in tloops
+                     if tg.vertices[v].name == n)
+                for n in ("scan:layers", "scan:layers.grad"))
+    (tfb,) = [k for k in tg.children(fwd.vid)
+              if tg.vertices[k].kind == BRANCH]
+    path, _, line = tg.vertices[tfb].source.rpartition(":")
+    assert path.endswith(os.path.join("repro_torch", "models", "hybrid.py"))
+    assert int(line) > 0
+    assert any(tg.vertices[k].kind == BRANCH
+               for k in _descendants(tg, bwd.vid))
+    (jfb,) = [k for k in jg.children(jloops[0])
+              if jg.vertices[k].kind == BRANCH]
+    assert _matmul_flops(tg, tfb, MATMULS) == pytest.approx(
+        _matmul_flops(jg, jfb, ("dot_general",)), rel=1e-2)
+
+
 # ---------------------------------------------------------------------------
 # the twins of tests/test_psg.py on a toy scan
 # ---------------------------------------------------------------------------
@@ -160,6 +220,61 @@ def test_build_psg_kinds_and_structure():
     jloop = jax_build_psg(_jax_example_fn, jnp.ones((4, 8)),
                           jnp.ones((8, 8))).by_kind(LOOP)[0]
     assert loop.flops == jloop.flops
+
+
+def _cond_fn(x, w):
+    def body(c, i):
+        c = cond(i % 2 == 0, lambda v: torch.tanh(v @ w), lambda v: v, c,
+                 name="even")
+        return c * 2.0, None
+    c, _ = scan(body, x, range(4), name="body")
+    return torch.sum(c)
+
+
+def _jax_cond_fn(x, w):
+    def body(c, i):
+        c = jax.lax.cond(i % 2 == 0, lambda v: jnp.tanh(v @ w),
+                         lambda v: v, c)
+        return c * 2.0, None
+    c, _ = jax.lax.scan(body, x, jnp.arange(4))
+    return jnp.sum(c)
+
+
+def test_cond_is_a_branch_vertex_in_the_loop():
+    x, w = torch.ones(4, 8), torch.ones(8, 8)
+    psg = build_psg(_cond_fn, x, w)
+    loop = psg.by_kind(LOOP)[0]
+    (branch,) = psg.by_kind(BRANCH)
+    assert branch.parent == loop.vid and branch.name == "cond:even"
+    assert [psg.vertices[k].name for k in psg.children(branch.vid)] == \
+        ["mm", "tanh"]
+    assert branch.flops == pytest.approx(
+        sum(psg.vertices[k].flops for k in psg.children(branch.vid)))
+    assert "test_torch_psg.py" in branch.source
+    # the loop's counters sum its iterations: two run the arm
+    jpsg = jax_build_psg(_jax_cond_fn, jnp.ones((4, 8)), jnp.ones((8, 8)))
+    (jbranch,) = jpsg.by_kind(BRANCH)
+    assert jpsg.vertices[jbranch.parent].kind == LOOP
+    assert branch.flops == pytest.approx(jbranch.flops)
+    # its backward: a Branch inside the backward loop, and the arm runs
+    x.requires_grad_(True)
+
+    def grad_fn(x, w):
+        with torch.enable_grad():
+            xs = x.detach().requires_grad_(True)
+            return torch.autograd.grad(_cond_fn(xs, w), xs)[0]
+
+    g = build_psg(grad_fn, x.detach(), w)
+    bwd = [v for v in g.by_kind(LOOP) if v.name == "scan:body.grad"]
+    assert len(bwd) == 1
+    assert [b.name for b in g.by_kind(BRANCH)] == ["cond:even",
+                                                   "cond:even.grad"]
+    assert g.by_kind(BRANCH)[1].parent == bwd[0].vid
+    xv = torch.randn(4, 8, generator=torch.Generator().manual_seed(0))
+    want = xv
+    for i in range(4):
+        want = (torch.tanh(want @ w) if i % 2 == 0 else want) * 2.0
+    assert torch.equal(_cond_fn(xv, w), torch.sum(want))
 
 
 def test_psg_source_attribution():
