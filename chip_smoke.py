@@ -35,8 +35,9 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    token from an empty cache agreeing with prefill;
 6. ssm — the ``ssd_scan`` kernel against its plain version at the
    reference's sweep, at a sequence shorter than its chunk and at the
-   three full-width shapes (mamba2's and zamba2's loss shapes, mamba2's
-   32768-token prefill), with its time at each, the plain version's and
+   full-width shapes (mamba2's and zamba2's loss shapes, mamba2's
+   32768-token prefill, and a (1, 2) rank's share of a one-row loss of
+   each: 12 and 40 heads), with its time at each, the plain version's and
    its bounds (its device time under the profiler is read from the
    profiled model runs below, a launch at a time); the
    flash kernel at zamba2's layer (h = 80) in float32 and
@@ -132,15 +133,36 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
 15. tensor — two ranks on a (1, 2) mesh (spawned processes, Gloo, the
    ranks time-sharing the card through the host), each holding its
    parameter shards, against the same work done by this process on the
-   card: tinyllama-1.1b at full width and depth, three train steps at
-   tokens (1, 2049) (the losses within 1e-4 relative, each rank's step-1
-   parameters and first moments against its slice of the one-process
-   ones; the third step the profiler's sampled replay, then one replay
-   timing each collective), the loss through the flash kernel on the
-   rank's 16 query and 2 KV heads (22 launches a rank, within 1e-4) and
+   card: tinyllama-1.1b at full width, 8 of its 22 layers, three train
+   steps at tokens (1, 2049) (the losses within 1e-4 relative, each
+   rank's step-1 parameters and first moments against its slice of the
+   one-process ones; the third step the profiler's sampled replay, then
+   one replay timing each collective), the loss through the flash kernel
+   on the rank's 16 query and 2 KV heads (8 launches a rank, within 1e-4)
+   and
    16 greedy tokens from a 64-token prompt (equal); then
    moonshot-v1-16b-a3b at its published widths, 2 of 48 layers, one
-   train step (loss and MoE metrics within 1e-4).
+   train step (loss and MoE metrics within 1e-4);
+16. tensor-ssm — the flash kernel at the ranks' local shapes (zamba2's 16
+   attention heads at h = 80, seamless's 8 in its encoder and decoder)
+   against its plain version, with its time, the plain version's, SDPA's
+   and the bound (phase 6 holds ``ssd_scan`` at the ranks' 12 and 40
+   heads); then two ranks on a (1, 2) mesh as in phase 15,
+   against the same work done by this process on the card: mamba2-130m
+   and seamless-m4t-medium at full width and depth, three train steps
+   each (mamba2 at tokens (1, 2049), seamless at (1, 513) after 1024
+   random frames; losses within 1e-4, the step-1 shards checked as in
+   phase 15, then the last step repeated with every all-reduce fenced and
+   timed), the loss through the kernels on the rank's heads (exact
+   launches, within 1e-3 of the rank's plain loss) and 16 greedy tokens
+   from a 64-token prompt (equal); mamba2's ``Trainer`` on the mesh, 2
+   steps and a checkpoint, 2 more from it, against 4 unbroken (within
+   1e-5), the checkpoint then loaded by this process for the same 2 steps
+   (within 1e-4 of rank 0's); zamba2-2.7b at full width and depth, the
+   kernel loss (54 ``ssd_scan`` and 9 flash launches a rank) and 16
+   greedy tokens, then one fenced train step at the deepest cut, a
+   multiple of 6 layers, that the reckoning of ``zamba_train_depth`` fits
+   on the card with both ranks (printed as ``reduced``).
 
 The detection kernels' launch counts are reset just before phase 3 and
 read just after phase 4, again just before phase 7's detect and just
@@ -154,6 +176,8 @@ the flash count just before phase 12's models and just after (added to
 the JSON line's), and the detection counts just before each detect of
 phases 13 and 14 and just after (added to the JSON line's), and each
 rank's flash count of phase 15 just before its kernel loss and just
+after (added to the JSON line's), and each rank's ``ssd_scan`` and flash
+counts of phase 16 just before each kernel loss and prefill and just
 after (added to the JSON line's).
 It exits non-zero, printing no
 result, when any check fails, when there is no CUDA card, or when the
@@ -201,7 +225,8 @@ MODELS = [("tinyllama-1.1b", ((4, 2049), (2, 4097)), 4, 32, None),
           ("zamba2-2.7b", ((2, 2049),), 2, 16, None)]
 # (B, S, H, P, N, chunk): the reference's SSD sweep (tests/test_kernels.py),
 # a sequence shorter than its chunk, then mamba2-130m's and zamba2-2.7b's
-# loss shapes and mamba2-130m's 32768-token prefill
+# loss shapes, mamba2-130m's 32768-token prefill, and the loss shapes of a
+# rank of [tensor-ssm]'s (1, 2) mesh (12 and 40 heads)
 SSD_SWEEP = [
     (1, 64, 2, 32, 16, 32),
     (2, 128, 4, 64, 32, 64),
@@ -211,7 +236,8 @@ SSD_SWEEP = [
     (1, 37, 2, 16, 16, 64),
 ]
 SSD_FULL = [(8, 2048, 24, 64, 128, 64), (2, 2048, 80, 64, 64, 64),
-            (1, 32768, 24, 64, 128, 64)]
+            (1, 32768, 24, 64, 128, 64), (1, 2048, 12, 64, 128, 64),
+            (1, 2048, 40, 64, 64, 64)]
 SSD_TOL = 2e-4                   # tests/test_kernels.py:117-120
 # full width, relative to max |y| (max |h|): float32 sums of up to
 # Q + N = 192 products in another order, ~1e-6 of the largest value;
@@ -1021,8 +1047,8 @@ def ssd_bound(case):
 
 def time_ssd():
     """The kernel at each full shape (mamba2-130m's loss shape, zamba2-
-    2.7b's, mamba2-130m's 32768-token prefill), its plain version on the
-    same tensors, and its bounds; the first shape is the JSON line's row,
+    2.7b's, mamba2-130m's 32768-token prefill, a tensor-parallel rank's
+    of each), its plain version on the same tensors, and its bounds; the first shape is the JSON line's row,
     the others are printed.  No single library call computes it."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel, ref
@@ -2201,10 +2227,11 @@ def phase_scaling(card: str):
 # -- phase 15: tensor parallelism on one card ------------------------------
 
 # two ranks on a (1, 2) mesh time-share the card over Gloo (through the
-# host): tinyllama-1.1b at full width and depth, moonshot-v1-16b-a3b at
-# its published widths with its depth cut to 2 of 48 layers
-TENSOR_ARCH, TENSOR_MOE, TENSOR_MOE_LAYERS = ("tinyllama-1.1b",
-                                              "moonshot-v1-16b-a3b", 2)
+# host): tinyllama-1.1b at full width, its depth cut to 8 of 22 layers
+# (to keep the whole script near 720 s with phase 16), moonshot-v1-16b-a3b
+# at its published widths with its depth cut to 2 of 48 layers
+TENSOR_ARCH, TENSOR_LAYERS = "tinyllama-1.1b", 8
+TENSOR_MOE, TENSOR_MOE_LAYERS = "moonshot-v1-16b-a3b", 2
 TENSOR_SEQ, TENSOR_STEPS, TENSOR_LR = 2048, 3, 1e-4   # tokens (1, 2049)
 TENSOR_PROMPT, TENSOR_NEW, TENSOR_TIMEOUT_S = 64, 16, 600
 TENSOR_TOL = 1e-4
@@ -2275,7 +2302,7 @@ def _tensor_reference():
     from repro_torch.optim.tree import leaves
     from repro_torch.training import make_train_step
 
-    cfg = get(TENSOR_ARCH)
+    cfg = get(TENSOR_ARCH).replace(n_layers=TENSOR_LAYERS)
     model = build_model(cfg, device="cuda")
     buffers = _shard_buffers(model)
     params = model.init(model.generator(0))
@@ -2410,7 +2437,7 @@ def _tensor_rank(rank: int, init: str, ref: dict, shard: dict, q) -> None:
                                     device="cuda", timeout_s=300,
                                     backend="gloo")
         mesh = make_host_mesh(2, device="cuda")
-        cfg = get(TENSOR_ARCH)
+        cfg = get(TENSOR_ARCH).replace(n_layers=TENSOR_LAYERS)
         model = build_model(cfg, device="cuda")
         with ax.use_rules(mesh):
             params = model.init(model.generator(0))
@@ -2599,7 +2626,7 @@ def phase_tensor(card: str) -> int:
         check(abs(o["kernel_loss"] - o["losses"][0]) < 1e-3,
               f"tensor: rank {r} kernel loss {o['kernel_loss']} vs plain "
               f"{o['losses'][0]}")
-        want = get(TENSOR_ARCH).n_layers       # one flash launch a layer
+        want = TENSOR_LAYERS                   # one flash launch a layer
         check(o["flash_launches"] == want,
               f"tensor: rank {r} flash launches {o['flash_launches']}, "
               f"expected {want}")
@@ -2642,6 +2669,599 @@ def phase_tensor(card: str) -> int:
               f"{card}]")
     print(f"  ranks' wall {wall:.1f} s (process start, trace and both "
           f"models included)")
+    return launches
+
+
+# -- phase 16: tensor parallelism of the SSM, hybrid and enc-dec families --
+
+# two ranks on a (1, 2) mesh as in [tensor] (spawned, Gloo, time-sharing
+# the card): mamba2-130m and seamless-m4t-medium at their published widths
+# and depths; zamba2-2.7b at its published width and depth for the kernel
+# loss and decode, its train step at the depth that fits both ranks
+TSSM = ("mamba2-130m", "seamless-m4t-medium", "zamba2-2.7b")
+TSSM_SEAMLESS_SEQ = 512         # tokens (1, 513) after frames (1, 1024, 1024)
+TSSM_TRAINER_STEPS = 2          # then 2 more from the checkpoint = 4 unbroken
+RESUME_TOL_TP = 1e-5
+# a rank's train step holds about 8.5 f32 copies of its parameters at
+# its peak (parameters, moments, gradients, the data bucket and its sum,
+# the new state): zamba2-2.7b's step at 36 layers peaked at 29.70 GB a
+# rank on an H100 80GB HBM3 at 700 W, 8.3 copies of its 3.38 GB of
+# shards over its activations (PERF.md); the two ranks may take 76 GB of
+# the 80 GB card, the rest is their contexts and this process
+TSSM_STEP_COPIES, TSSM_CARD_GB = 8.5, 76.0
+# one zamba2 layer's recompute under remat: what autograd saves for a
+# layer's backward with remat off, tools_torch/saved_activations.py at 6
+# of zamba2's layers on the host (2.792 MB a token at 256 tokens, 2.829
+# at 512: ~3.05 MB a token at 2048, a sixth of it a layer), the shared
+# block's site counted whole
+ZAMBA_LAYER_SAVED = 3.05e6 * 2048 / 6
+# the flash kernel at the ranks' local shapes: zamba2's 16 attention heads
+# (h = 80) and seamless's 8 (h = 64) in the encoder (non-causal, 1024
+# frames) and decoder (512); [ssm] holds ssd_scan at theirs (SSD_FULL)
+FLASH_TENSOR = [(1, 16, 16, 2048, 2048, 80, True, "float32"),
+                (1, 8, 8, 1024, 1024, 64, False, "float32"),
+                (1, 8, 8, 512, 512, 64, True, "float32")]
+
+
+def _local_params(cfg) -> int:
+    """Parameters a rank of a (1, 2) mesh holds of ``cfg``."""
+    import torch
+    from repro_torch.distributed import axes as ax
+    from repro_torch.models import build_model
+    from repro_torch.models.params import _walk
+    model = build_model(cfg, device="cpu")          # specs only
+    with ax.use_rules({"data": 1, "model": 2}):
+        return sum(torch.Size(ax.local_shape(sp.axes, sp.shape)).numel()
+                   for _, sp in _walk(model.specs))
+
+
+def zamba_train_depth():
+    """The deepest cut of zamba2-2.7b, a multiple of ``attn_every``, whose
+    train step fits both ranks: each ``TSSM_STEP_COPIES`` f32 copies of
+    its parameters, its remat-saved layer inputs (1 x 2048 x d f32 a
+    layer) and one layer's recompute (``ZAMBA_LAYER_SAVED``), within
+    ``TSSM_CARD_GB``.  Returns (depth, GB a rank at that depth, GB a rank
+    at the published depth)."""
+    from repro_torch.configs import get
+    cfg = get(TSSM[2])
+
+    def gb(n):
+        c = cfg.replace(n_layers=n)
+        state = TSSM_STEP_COPIES * 4 * _local_params(c)
+        acts = n * TENSOR_SEQ * c.d_model * 4 + ZAMBA_LAYER_SAVED
+        return (state + acts) / 1e9
+
+    best = max(n for n in range(cfg.attn_every, cfg.n_layers + 1,
+                                cfg.attn_every)
+               if 2 * gb(n) <= TSSM_CARD_GB)
+    return best, gb(best), gb(cfg.n_layers)
+
+
+def tssm_launches(cfg, loss: bool) -> dict:
+    """A rank's exact kernel launches in a loss (``loss``) or a prefill
+    of ``cfg``: one ``ssd_scan`` a Mamba2 layer; one flash a
+    self-attention layer of the loss (the hybrid's shared block at each
+    site; the encoder's, non-causal, and the decoder's), and the encoder's
+    in a prefill (the decoder's self-attention and the shared block's
+    prefill take the einsum path, as in the reference)."""
+    from repro_torch.models.hybrid import n_attn_sites
+    ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    flash = 0
+    if cfg.family == "hybrid" and loss:
+        flash = n_attn_sites(cfg)
+    if cfg.family == "encdec":
+        flash = cfg.enc_layers + (cfg.n_layers if loss else 0)
+    return {"ssd_scan": ssd, "flash_attention": flash}
+
+
+def _tssm_batch(cfg, i: int, device):
+    """Step ``i``'s batch of the data pipeline at one row: seamless's
+    tokens (1, 513) after its 1024 frames, the others' (1, 2049)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_dataset
+    from repro_torch.training.trainer import to_device
+    seq = TSSM_SEAMLESS_SEQ if cfg.family == "encdec" else TENSOR_SEQ
+    data = make_dataset(cfg, ShapeConfig("tensor", seq, 1, "train"))
+    return to_device(data.batch(i), device)
+
+
+def _tssm_greedy(model, params):
+    """16 greedy tokens after a seeded 64-token prompt (and 1024 random
+    frames for the encoder-decoder)."""
+    import torch
+    cfg = model.cfg
+    batch = zoo_batch(cfg, (1, TENSOR_PROMPT), "cuda", seed=11)
+    logits, cache = model.prefill(params, batch, TENSOR_PROMPT + TENSOR_NEW)
+    toks = []
+    for _ in range(TENSOR_NEW):
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        toks.append(tok)
+        logits, cache = model.decode_step(params, cache, tok)
+    return torch.cat(toks, 1).cpu().tolist()
+
+
+def _step1_errors(state, params, shard, lr: float) -> dict:
+    """A rank's first step against this process's: its first and second
+    moments against its slice of the one-process first moments (max |d| /
+    max |ref| a leaf, and the index of the worst leaf; the second moments
+    hold the same gradient), its new
+    parameters against AdamW's first step from its own moments and old
+    shards (the excess over 1e-6 relative + 1e-5 lr, at most 0)."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.optim.tree import leaves
+    err = {}
+    for k, tree in (("params", state.params), ("mu", state.opt.mu)):
+        rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(leaves(tree), shard[k])]
+        err[k] = max(rel)
+        err[k + "_leaf"] = rel.index(err[k])
+    err["nu"] = max(
+        float((torch.sqrt(v / (1 - ADAM_B2))
+               - m.abs() / (1 - ADAM_B1)).abs().max())
+        / max(float(m.abs().max()) / (1 - ADAM_B1), 1e-30)
+        for v, m in zip(leaves(state.opt.nu), shard["mu"]))
+    excess = 0.0
+    for p, p0, m, v in zip(leaves(state.params), leaves(params),
+                           leaves(state.opt.mu), leaves(state.opt.nu)):
+        want = _adamw_first_step(p0, m, v, lr, RunConfig().weight_decay)
+        excess = max(excess, float(((p.float() - want).abs()
+                                    - 1e-6 * want.abs() - 1e-5 * lr).max()))
+    err["param_excess"] = excess
+    return err
+
+
+class _FencedAllReduce:
+    """While active, every functional all-reduce (the model's and the
+    step's data bucket) is fenced by ``torch.cuda.synchronize`` and timed,
+    by its group's ranks: one step run under it is a fenced step."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        import torch.distributed._functional_collectives as funcol
+        self.ms, self.funcol = {}, funcol
+        self.orig = orig = funcol.all_reduce
+
+        def timed(t, op, group, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(t, op, group, *args, **kw)
+            if isinstance(out, funcol.AsyncCollectiveTensor):
+                out = out.wait()
+            torch.cuda.synchronize()
+            key = f"all_reduce {dist.get_process_group_ranks(group)}"
+            self.ms[key] = self.ms.get(key, 0.0) + \
+                1e3 * (time.perf_counter() - t0)
+            return out
+
+        funcol.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.funcol.all_reduce = self.orig
+
+
+def _tssm_reference(zamba_depth: int):
+    """The one-process runs on the card the ranks are held against:
+    mamba2's and seamless's three steps (losses; each rank's shards of
+    the step-1 parameters and first moments, in buffers allocated first),
+    kernel losses and greedy tokens; zamba2's kernel and plain losses and
+    greedy tokens at full depth, and its plain loss at ``zamba_depth``."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim.schedule import constant
+    from repro_torch.training import make_train_step
+
+    models = {a: build_model(get(a), device="cuda") for a in TSSM[:2]}
+    buffers = {a: _shard_buffers(m) for a, m in models.items()}
+    ref, shards = {}, [{}, {}]
+    for arch, model in models.items():
+        cfg = model.cfg
+        params = model.init(model.generator(0))
+        step = make_train_step(model, RunConfig(), constant(TENSOR_LR))
+        state, losses = _train_state(params, "cuda"), []
+        for i in range(TENSOR_STEPS):
+            state, m = step(state, _tssm_batch(cfg, i, "cuda"))
+            losses.append(float(m["loss"]))
+            if i == 0:
+                for r, flat in enumerate(buffers[arch]):
+                    shards[r][arch] = _rank_shards(model, state, flat, r)
+        del state, m
+        gc.collect()
+        model_k = build_model(cfg.replace(use_kernels=True), device="cuda")
+        with torch.no_grad():
+            kernel = float(model_k.train_loss(
+                params, _tssm_batch(cfg, 0, "cuda"))[0])
+            tokens = _tssm_greedy(model_k, params)
+        ref[arch] = {"losses": losses, "kernel_loss": kernel,
+                     "tokens": tokens, "nparams": model.param_count()}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = get(TSSM[2])
+    for depth in (cfg.n_layers, zamba_depth):
+        c = cfg.replace(n_layers=depth)
+        model = build_model(c, device="cuda")
+        params = model.init(model.generator(0))
+        batch = _tssm_batch(c, 0, "cuda")
+        with torch.no_grad():
+            plain = float(model.train_loss(params, batch)[0])
+            r = {"plain_loss": plain, "nparams": model.param_count()}
+            if depth == cfg.n_layers:
+                model_k = build_model(c.replace(use_kernels=True),
+                                      device="cuda")
+                r["kernel_loss"] = float(model_k.train_loss(params,
+                                                            batch)[0])
+                r["tokens"] = _tssm_greedy(model_k, params)
+        ref[TSSM[2], depth] = r
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ref, shards
+
+
+def _tssm_rank(rank: int, init: str, ref: dict, shard: dict, ckpt: str,
+               zamba_depth: int, q) -> None:
+    """One rank of ``[tensor-ssm]``: mamba2's and seamless's three steps
+    (the step-1 shards against ``shard``, a fenced fourth step timing the
+    all-reduces), kernel losses and greedy tokens, mamba2's ``Trainer``
+    across a checkpoint in ``ckpt``, then zamba2's kernel loss and greedy
+    tokens at full depth and one train step at ``zamba_depth``; each
+    result checked by the caller, the dict put on ``q``."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    out = {"rank": rank}
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.configs import get
+        from repro_torch.configs.base import RunConfig, ShapeConfig
+        from repro_torch.distributed import axes as ax
+        from repro_torch.kernels.flash_attention import kernel as flash
+        from repro_torch.kernels.ssd_scan import kernel as ssd
+        from repro_torch.launch.mesh import init_group, make_host_mesh
+        from repro_torch.models import build_model
+        from repro_torch.optim.schedule import constant
+        from repro_torch.training import make_train_step
+        from repro_torch.training.trainer import Trainer
+
+        def kernel_counts():
+            return {"ssd_scan": ssd.ssd_scan.launches,
+                    "flash_attention": flash.flash_attention.launches}
+
+        def reset_counts():
+            ssd.ssd_scan.launches = flash.flash_attention.launches = 0
+
+        out["backend"] = init_group(rank, 2, "file://" + init,
+                                    device="cuda", timeout_s=300,
+                                    backend="gloo")
+        mesh = make_host_mesh(2, device="cuda")
+        for arch in TSSM[:2]:
+            cfg = get(arch)
+            res = out[arch] = {}
+            torch.cuda.reset_peak_memory_stats()
+            model = build_model(cfg, device="cuda")
+            with ax.use_rules(mesh):
+                params = model.init(model.generator(0))
+                step = make_train_step(model, RunConfig(),
+                                       constant(TENSOR_LR))
+                state, losses, times = _train_state(params, "cuda"), [], []
+                for i in range(TENSOR_STEPS):
+                    batch = _tssm_batch(cfg, i, "cuda")
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    new, m = step(state, batch)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    losses.append(float(m["loss"]))
+                    if i == 0:
+                        res["step1"] = _step1_errors(new, params,
+                                                     shard[arch], TENSOR_LR)
+                        shard[arch].clear()     # the process holds the dict
+                        q.put({"rank": rank, "released": arch})
+                    if i < TENSOR_STEPS - 1:
+                        state = new
+                    del new, m
+                # a fenced repeat of the last step, its collectives timed
+                with _FencedAllReduce() as fenced:
+                    step(state, batch)
+                res["comm_ms"] = fenced.ms
+                res["losses"], res["step_s"] = losses, times
+                del state, batch
+                gc.collect()
+                model_k = build_model(cfg.replace(use_kernels=True),
+                                      device="cuda")
+                reset_counts()
+                with torch.no_grad():
+                    res["kernel_loss"] = float(model_k.train_loss(
+                        params, _tssm_batch(cfg, 0, "cuda"))[0])
+                    res["loss_launches"] = kernel_counts()
+                    reset_counts()
+                    res["tokens"] = _tssm_greedy(model_k, params)
+                    res["greedy_launches"] = kernel_counts()
+                res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del params, model_k
+            gc.collect()
+            torch.cuda.empty_cache()
+        # mamba2's Trainer on the mesh: 2 steps and a checkpoint, 2 more
+        # from it, against 4 unbroken; each rank joins every save's gather
+        tshape = ShapeConfig("tensor", TENSOR_SEQ, 1, "train")
+
+        def trainer(directory):
+            run = RunConfig(arch=TSSM[0], total_steps=2 * TSSM_TRAINER_STEPS,
+                            learning_rate=TENSOR_LR, warmup_steps=1,
+                            checkpoint_dir=directory, checkpoint_every=100,
+                            scalana=False)
+            return Trainer(run, mesh=mesh, arch_cfg=get(TSSM[0]),
+                           shape=tshape, device="cuda")
+
+        def trained(tr, n):
+            tr.train(num_steps=n)
+            return [x["loss"] for x in tr.metrics_log if "loss" in x]
+
+        t0 = time.perf_counter()
+        split = trained(trainer(ckpt), TSSM_TRAINER_STEPS) + \
+            trained(trainer(ckpt), TSSM_TRAINER_STEPS)
+        out["trainer"] = {"split": split, "written": sorted(os.listdir(ckpt)),
+                          "unbroken": trained(trainer(""),
+                                              2 * TSSM_TRAINER_STEPS),
+                          "wall_s": time.perf_counter() - t0}
+        gc.collect()
+        torch.cuda.empty_cache()
+        # zamba2: the kernel loss and greedy tokens at full depth
+        cfg = get(TSSM[2])
+        res = out[TSSM[2]] = {}
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, device="cuda")
+        model_k = build_model(cfg.replace(use_kernels=True), device="cuda")
+        with ax.use_rules(mesh), torch.no_grad():
+            params = model.init(model.generator(0))
+            batch = _tssm_batch(cfg, 0, "cuda")
+            res["plain_loss"] = float(model.train_loss(params, batch)[0])
+            reset_counts()
+            res["kernel_loss"] = float(model_k.train_loss(params, batch)[0])
+            res["loss_launches"] = kernel_counts()
+            reset_counts()
+            res["tokens"] = _tssm_greedy(model_k, params)
+            res["greedy_launches"] = kernel_counts()
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        # one train step at the depth that fits both ranks
+        torch.cuda.reset_peak_memory_stats()
+        cfg = cfg.replace(n_layers=zamba_depth)
+        model = build_model(cfg, device="cuda")
+        with ax.use_rules(mesh):
+            params = model.init(model.generator(0))
+            step = make_train_step(model, RunConfig(), constant(TENSOR_LR))
+            batch = _tssm_batch(cfg, 0, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _FencedAllReduce() as fenced:
+                _, m = step(_train_state(params, "cuda"), batch)
+            torch.cuda.synchronize()
+            res["step_s"] = time.perf_counter() - t0
+            res["step_loss"] = float(m["loss"])
+            res["step_comm_ms"] = fenced.ms
+        res["step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params, m
+    except Exception:
+        out["error"] = traceback.format_exc()[-4000:]
+    finally:
+        q.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _one_process_resume(ckpt: str) -> list:
+    """mamba2's (1, 2) checkpoint of step 2, loaded by one process on the
+    card and trained 2 more steps: its losses."""
+    import shutil
+    from repro_torch.configs import get
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.training.trainer import Trainer
+    one = ckpt + ".one"
+    shutil.copytree(os.path.join(ckpt, f"step_{TSSM_TRAINER_STEPS}"),
+                    os.path.join(one, f"step_{TSSM_TRAINER_STEPS}"))
+    run = RunConfig(arch=TSSM[0], total_steps=2 * TSSM_TRAINER_STEPS,
+                    learning_rate=TENSOR_LR, warmup_steps=1,
+                    checkpoint_dir=one, checkpoint_every=100, scalana=False)
+    tr = Trainer(run, arch_cfg=get(TSSM[0]),
+                 shape=ShapeConfig("tensor", TENSOR_SEQ, 1, "train"),
+                 device="cuda")
+    tr.train(num_steps=TSSM_TRAINER_STEPS)
+    check(tr.metrics_log[0]["step"] == TSSM_TRAINER_STEPS,
+          f"tensor-ssm: one process resumed at {tr.metrics_log[0]}")
+    shutil.rmtree(one, ignore_errors=True)
+    return [x["loss"] for x in tr.metrics_log if "loss" in x]
+
+
+def phase_tensor_ssm(card: str) -> dict:
+    """[tensor-ssm]: two ranks on a (1, 2) mesh on the card against the
+    same work in one process, for mamba2, seamless and zamba2.  Returns
+    the ranks' kernel launches by kernel."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get
+    from repro_torch.models import build_model
+    from repro_torch.models.params import _walk
+
+    flash_layers(FLASH_TENSOR, card)
+    depth, gb, gb_full = zamba_train_depth()
+    print(f"  reduced: {TSSM[2]}'s train step at {depth} of "
+          f"{get(TSSM[2]).n_layers} layers: ~{gb:.1f} GB a rank reckoned "
+          f"({TSSM_STEP_COPIES} f32 copies of its parameters + remat "
+          f"inputs + a layer's recompute), ~{gb_full:.1f} GB at full "
+          f"depth; two ranks within {TSSM_CARD_GB:.0f} GB of the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref, shards = _tssm_reference(depth)
+    full = ref[TSSM[2], get(TSSM[2]).n_layers]
+    print(f"  one-process reference {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: "
+          + "; ".join(f"{a} losses {[round(x, 6) for x in ref[a]['losses']]}"
+                      for a in TSSM[:2])
+          + f"; {TSSM[2]} plain loss {full['plain_loss']:.6f}, kernel "
+          f"{full['kernel_loss']:.6f}, at {depth} layers "
+          f"{ref[TSSM[2], depth]['plain_loss']:.6f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init = tempfile.mktemp(prefix="chip_smoke_tensor_ssm_")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_tensor_ckpt_")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_tssm_rank,
+                         args=(r, init, ref, shards[r], ckpt, depth, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    outs, released = [], {}
+    try:
+        while len(outs) < len(procs):
+            o = q.get(timeout=TENSOR_TIMEOUT_S)
+            if o.get("released"):           # both ranks done with a
+                arch = o["released"]         # model's step-1 shards
+                released[arch] = released.get(arch, 0) + 1
+                if released[arch] == len(procs):
+                    for d in shards:
+                        d.pop(arch).clear()
+                    torch.cuda.ipc_collect()
+                    torch.cuda.empty_cache()
+                continue
+            outs.append(o)
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if os.path.exists(init):
+            os.remove(init)
+        os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+    wall = time.perf_counter() - t0
+    outs.sort(key=lambda o: o["rank"])
+    for o in outs:
+        check("error" not in o, f"tensor-ssm: rank {o['rank']} failed:\n"
+              f"{o.get('error')}")
+    try:
+        resumed = _one_process_resume(ckpt)
+    finally:
+        import shutil
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = {"ssd_scan": 0, "flash_attention": 0}
+    want_loss = {a: tssm_launches(get(a), True) for a in TSSM}
+    want_greedy = {a: tssm_launches(get(a), False) for a in TSSM}
+    for o in outs:
+        r = o["rank"]
+        for arch in TSSM:
+            res, want = o[arch], ref.get(arch) or ref[
+                arch, get(arch).n_layers]
+            for k in ("loss_launches", "greedy_launches"):
+                exp = (want_loss if k == "loss_launches" else
+                       want_greedy)[arch]
+                check(res[k] == exp, f"tensor-ssm: rank {r} {arch} {k} "
+                      f"{res[k]}, expected {exp}")
+                for n, c in res[k].items():
+                    launches[n] += c
+            check(res["tokens"] == want["tokens"],
+                  f"tensor-ssm: rank {r} {arch} tokens {res['tokens']} vs "
+                  f"{want['tokens']}")
+            plain = res["losses"][0] if "losses" in res else \
+                res["plain_loss"]
+            check(abs(res["kernel_loss"] - plain) < 1e-3,
+                  f"tensor-ssm: rank {r} {arch} kernel loss "
+                  f"{res['kernel_loss']} vs plain {plain}")
+            check(abs(res["kernel_loss"] - want["kernel_loss"])
+                  <= TENSOR_TOL * abs(want["kernel_loss"]),
+                  f"tensor-ssm: rank {r} {arch} kernel loss "
+                  f"{res['kernel_loss']} vs one process "
+                  f"{want['kernel_loss']}")
+        for arch in TSSM[:2]:
+            res, want = o[arch], ref[arch]
+            names = ["/".join(p) for p, _ in _walk(
+                build_model(get(arch), device="cpu").specs)]
+            rel = [abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                       want["losses"])]
+            check(len(rel) == TENSOR_STEPS and max(rel) <= TENSOR_TOL,
+                  f"tensor-ssm: rank {r} {arch} losses {res['losses']} vs "
+                  f"{want['losses']}")
+            s1 = res["step1"]
+            check(s1["mu"] <= TENSOR_TOL and s1["nu"] <= TENSOR_TOL
+                  and s1["param_excess"] <= 0.0,
+                  f"tensor-ssm: rank {r} {arch} step-1 shards {s1}")
+            model_ms = sum(v for k, v in res["comm_ms"].items()
+                           if k == "all_reduce [0, 1]")
+            check(model_ms > 0, f"tensor-ssm: rank {r} {arch} collectives "
+                  f"{res['comm_ms']}")
+            print(f"  rank {r} ({o['backend']}): {arch} ({want['nparams']} "
+                  f"params) median step "
+                  f"{1e3 * statistics.median(res['step_s']):.3f} ms "
+                  f"({[round(1e3 * x, 3) for x in res['step_s']]}), losses "
+                  f"{[round(x, 6) for x in res['losses']]} (max rel "
+                  f"{max(rel):.2e}); step 1: mu / nu {s1['mu']:.2e} / "
+                  f"{s1['nu']:.2e} (mu's worst leaf {names[s1['mu_leaf']]}),"
+                  f" params excess {s1['param_excess']:.2e};"
+                  f" a fenced step's model-axis all-reduces "
+                  f"{model_ms:.3f} ms ("
+                  + ", ".join(f"{k}: {v:.3f} ms" for k, v in
+                              sorted(res["comm_ms"].items()))
+                  + f"); kernel loss {res['kernel_loss']:.6f} (plain "
+                  f"{res['losses'][0]:.6f}, one process "
+                  f"{want['kernel_loss']:.6f}), launches "
+                  f"{res['loss_launches']} a loss, "
+                  f"{res['greedy_launches']} a prefill; {TENSOR_NEW} greedy "
+                  f"tokens equal; peak {res['peak_gb']:.2f} GB  "
+                  f"[{TENSOR_NOTE}; {card}]")
+        tr = o["trainer"]
+        d = max(abs(a - b) for a, b in zip(tr["split"], tr["unbroken"]))
+        check(len(tr["split"]) == 2 * TSSM_TRAINER_STEPS
+              and d <= RESUME_TOL_TP * max(abs(x) for x in tr["unbroken"]),
+              f"tensor-ssm: rank {r} Trainer {tr['split']} vs unbroken "
+              f"{tr['unbroken']}")
+        check(tr["written"] == [f"step_{TSSM_TRAINER_STEPS}",
+                                f"step_{2 * TSSM_TRAINER_STEPS}"],
+              f"tensor-ssm: rank {r} checkpoint directory {tr['written']}")
+        print(f"  rank {r}: {TSSM[0]} Trainer {TSSM_TRAINER_STEPS} + "
+              f"{TSSM_TRAINER_STEPS} steps across a checkpoint "
+              f"{[round(x, 6) for x in tr['split']]} = unbroken (max |d| "
+              f"{d:.2e}); {tr['wall_s']:.1f} s  [{TENSOR_NOTE}; {card}]")
+        res = o[TSSM[2]]
+        want_step = ref[TSSM[2], depth]["plain_loss"]
+        check(abs(res["step_loss"] - want_step) <= TENSOR_TOL * want_step,
+              f"tensor-ssm: rank {r} {TSSM[2]} step loss "
+              f"{res['step_loss']} vs one process {want_step}")
+        model_ms = sum(v for k, v in res["step_comm_ms"].items()
+                       if k == "all_reduce [0, 1]")
+        print(f"  rank {r}: {TSSM[2]} full depth: kernel loss "
+              f"{res['kernel_loss']:.6f} (plain {res['plain_loss']:.6f}), "
+              f"launches {res['loss_launches']} a loss, "
+              f"{res['greedy_launches']} a prefill, {TENSOR_NEW} greedy "
+              f"tokens equal, peak {res['peak_gb']:.2f} GB; at {depth} "
+              f"layers one fenced step {1e3 * res['step_s']:.3f} ms "
+              f"(model-axis all-reduces {model_ms:.3f} ms), loss "
+              f"{res['step_loss']:.6f} (one process {want_step:.6f}), "
+              f"peak {res['step_peak_gb']:.2f} GB  [{TENSOR_NOTE}; {card}]")
+    last = outs[0]["trainer"]["split"][-TSSM_TRAINER_STEPS:]
+    d = max(abs(a - b) for a, b in zip(resumed, last))
+    check(d <= TENSOR_TOL * max(abs(x) for x in last),
+          f"tensor-ssm: one process from the (1, 2) checkpoint {resumed} vs "
+          f"rank 0 {last}")
+    print(f"  the (1, 2) checkpoint of step {TSSM_TRAINER_STEPS} loaded by "
+          f"one process on the card: losses {[round(x, 6) for x in resumed]}"
+          f" (rank 0 {[round(x, 6) for x in last]}, max |d| {d:.2e})")
+    print(f"  ranks' wall {wall:.1f} s (process start and every model "
+          f"included); launches {launches}  [{TENSOR_NOTE}; {card}]")
     return launches
 
 
@@ -2833,11 +3453,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         t_tensor = time.perf_counter()
         print(f"[tensor] tensor parallelism on a (1, 2) mesh: "
-              f"{TENSOR_ARCH} at full width and depth, {TENSOR_MOE} at "
-              f"{TENSOR_MOE_LAYERS} of its layers; {TENSOR_NOTE}; {card}")
+              f"{TENSOR_ARCH} at full width, {TENSOR_LAYERS} of its layers, "
+              f"{TENSOR_MOE} at {TENSOR_MOE_LAYERS} of its layers; "
+              f"{TENSOR_NOTE}; {card}")
         launches["flash_attention"] += phase_tensor(card)
         print(f"[tensor] phase wall time "
               f"{time.perf_counter() - t_tensor:.1f} s  [{TENSOR_NOTE}; "
+              f"{card}]")
+        torch.cuda.empty_cache()
+        t_tssm = time.perf_counter()
+        print(f"[tensor-ssm] tensor parallelism of the SSM, hybrid and "
+              f"encoder-decoder families on a (1, 2) mesh: {TSSM[0]} and "
+              f"{TSSM[1]} at full width and depth, {TSSM[2]} at full width; "
+              f"{TENSOR_NOTE}; {card}")
+        for n, c in phase_tensor_ssm(card).items():
+            launches[n] += c
+        print(f"[tensor-ssm] phase wall time "
+              f"{time.perf_counter() - t_tssm:.1f} s  [{TENSOR_NOTE}; "
               f"{card}]")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

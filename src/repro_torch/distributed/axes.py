@@ -32,16 +32,18 @@ GSPMD would insert them for the reference, Megatron's column/row split:
 * :func:`gather_from_model` — all-gather over ``model`` forward,
   reduce-scatter backward, for a weight sharded where its use needs it
   whole (the MoE router, K/V weights split inside a head);
+* :func:`sum_over_model` — an all-reduce over ``model`` forward and
+  backward, for a partial sum every rank uses whole (the SSD block's
+  gate-norm sum of squares over its heads);
 * :func:`batch_mean` — a mean over the batch axes ('pod', 'data') whose
   backward passes the cotangent through (the MoE load-balance means).
 
 Each is a functional collective, so a traced step holds it as a Comm
 vertex with its ``file:line`` here.  ``logical_constraint`` is the
 reference's hint on an activation: under these local shards it has
-nothing to move, so it is an identity for the names the transformer
-families use, and raises for the names of the families whose tensor
-parallelism is ROADMAP Queue 1 item 10b (SSM, hybrid, encoder-decoder),
-as :func:`require_data_parallel` does at their entry points.
+nothing to move, so it is an identity, except for a sequence dim that
+the rules put on ``model`` (sequence parallelism, ROADMAP Queue 1 item
+10b), for which it raises.
 """
 from __future__ import annotations
 
@@ -155,20 +157,6 @@ def model_size(mesh=None) -> int:
     return 1 if mesh is None else axis_sizes(mesh).get("model", 1)
 
 
-def require_data_parallel(mesh, what: str) -> None:
-    """Raise unless every axis of ``mesh`` above size 1 splits only the
-    batch: for the families whose tensor parallelism is not ported."""
-    if mesh is None:
-        return
-    wide = [a for a, n in axis_sizes(mesh).items()
-            if n > 1 and a not in BATCH_AXES]
-    if wide:
-        raise NotImplementedError(
-            f"{what} under mesh axes {wide} above size 1: tensor "
-            "parallelism of this family on torch is ROADMAP Queue 1 "
-            "item 10b")
-
-
 def weight_constraint(w: torch.Tensor, *logical_axes: Optional[str]
                       ) -> torch.Tensor:
     """FSDP gather-at-use point for a weight matrix: a no-op unless the
@@ -182,10 +170,6 @@ def weight_constraint(w: torch.Tensor, *logical_axes: Optional[str]
             "gather_weights: FSDP storage of 'embed' on 'data' on torch is "
             "ROADMAP Queue 1 item 10b")
     return w
-
-
-# logical names of the families whose tensor parallelism is not ported
-_UNPORTED = ("ssm_inner", "ssm_heads", "ssm_pdim")
 
 
 def _mesh_axes_of(rule: Rule, sizes: Mapping[str, int]) -> Tuple[str, ...]:
@@ -252,10 +236,8 @@ def logical_constraint(x: torch.Tensor, *logical_axes: Optional[str]
     """The reference's sharding hint via logical names.  A rank's tensors
     are its local shards already, so there is nothing to move: the
     identity without a mesh, under a data-parallel mesh, and under a
-    ``model`` axis for the names the transformer families use.  Under a
-    ``model`` axis above 1 it raises for a name that the rules put on
-    ``model`` for another family, or for a sequence dim that they put
-    there (``seq_shard``)."""
+    ``model`` axis above 1, except for a sequence dim that the rules put
+    on ``model`` (``seq_shard``), for which it raises."""
     mesh = _CTX.mesh
     if mesh is None or model_size(mesh) == 1:
         return x
@@ -264,7 +246,7 @@ def logical_constraint(x: torch.Tensor, *logical_axes: Optional[str]
             continue
         on_model = "model" in _mesh_axes_of(_CTX.rules.get(name),
                                             axis_sizes(mesh))
-        if on_model and (name in _UNPORTED or name.endswith("seq")):
+        if on_model and name.endswith("seq"):
             raise NotImplementedError(
                 f"logical_constraint: {name!r} on the model axis on torch "
                 "is ROADMAP Queue 1 item 10b")
@@ -450,6 +432,14 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     """Megatron's g: the sum over ``model`` of the ranks' partial ``x``;
     its gradient passed through (every rank's is the whole one)."""
     return _ReduceFromModel.apply(x)
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum over ``model`` of the ranks' partial ``x``, its gradient
+    summed over ``model`` too: for a partial sum whose total every rank
+    uses whole, so that each rank's cotangent of the total is only its
+    part of the whole one."""
+    return reduce_from_model(copy_to_model(x))
 
 
 def all_reduce_max(x: torch.Tensor) -> torch.Tensor:

@@ -228,8 +228,9 @@ def build_cell(arch: str, shape_name: str, mesh, *,
         def serve_step(p, cache, tok):
             return model.decode_step(p, cache, tok)
 
-        cache = model.cache_specs(shape.global_batch, shape.seq_len)
-        cache = _local(in_ax["cache"], cache, mesh, rules)
+        # the rank's cache from the model (a packed SSD conv state is not
+        # a slice of the whole one), on the batch rows of its tokens
         tokens = _local(in_ax["tokens"], inputs["tokens"], mesh, rules)
+        cache = model.cache_specs(tokens.shape[0], shape.seq_len)
         return Cell(arch, shape, "decode", serve_step,
                     (params, cache, tokens), mesh, rules, model, options)

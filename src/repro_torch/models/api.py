@@ -6,8 +6,12 @@ JAX package builds: dense, moe and vlm (the transformer), ssm, hybrid
 and encdec.  Everything runs on ``cuda`` unless ``device="cpu"`` is
 asked for.  Like the reference's, the bundle gives the launcher the
 abstract parameters and inputs of a cell and their partition specs; its
-abstract tensors live on the ``meta`` device, the parameters as this
-rank's shards under the active rules.
+abstract tensors live on the ``meta`` device, the parameters and the
+serving cache as this rank's shards under the active rules.  The cache's
+logical axes are the reference's; a rank's packed SSD conv state departs
+from them (its x channels and the whole B and C, not a contiguous slice
+of the packed dim), so its local shapes come from ``cache_specs``, not
+from dividing the whole ones by their specs.
 """
 from __future__ import annotations
 
@@ -49,9 +53,10 @@ class ModelBundle:
         return param_specs_tree(self.specs)
 
     def cache_specs(self, batch: int, max_len: int):
-        """The serving cache's whole shapes on the ``meta`` device."""
-        with use_rules(None):
-            return self.init_cache(batch, max_len, "meta")
+        """The serving cache on the ``meta`` device: this rank's shapes
+        under the active rules (its K/V heads, its SSD heads and packed
+        conv channels), the whole ones without them."""
+        return self.init_cache(batch, max_len, "meta")
 
     # ------------------------------------------------------------------
     # Abstract inputs for one (arch x shape) cell, global shapes on the
@@ -65,7 +70,8 @@ class ModelBundle:
             return torch.empty(dims, dtype=dtype, device="meta")
 
         if shape.kind == "decode":
-            return {"tokens": t(B, 1), "cache": self.cache_specs(B, S)}
+            with use_rules(None):
+                return {"tokens": t(B, 1), "cache": self.cache_specs(B, S)}
         batch = {"tokens": t(B, S + 1 if shape.kind == "train" else S)}
         if cfg.family == "encdec":
             batch["frames"] = t(B, cfg.frontend_len, cfg.d_model,

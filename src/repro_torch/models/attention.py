@@ -76,6 +76,20 @@ def heads(cfg: ArchConfig) -> Heads:
                  "gather" if kd is not None else "whole")
 
 
+def kv_weights(cfg: ArchConfig, p: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``wk`` and ``wv`` of the K/V heads this rank computes: its shards,
+    the shards gathered where they split inside a head, or the whole
+    weights, whose gradient each rank only has its query heads' part of."""
+    hd = heads(cfg)
+    wk, wv = p["wk"], p["wv"]
+    if hd.tp and hd.kv == "gather":
+        return ax.gather_from_model(wk, 1), ax.gather_from_model(wv, 1)
+    if hd.tp and hd.kv == "whole":
+        return ax.copy_to_model(wk), ax.copy_to_model(wv)
+    return wk, wv
+
+
 def qkv(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
         positions: torch.Tensor
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -84,13 +98,9 @@ def qkv(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     B, S, _ = x.shape
     h = cfg.resolved_head_dim()
     hd = heads(cfg)
-    wk, wv = p["wk"], p["wv"]
     if hd.tp:
         x = ax.copy_to_model(x)
-        if hd.kv == "gather":
-            wk, wv = ax.gather_from_model(wk, 1), ax.gather_from_model(wv, 1)
-        elif hd.kv == "whole":
-            wk, wv = ax.copy_to_model(wk), ax.copy_to_model(wv)
+    wk, wv = kv_weights(cfg, p)
     q = (x @ p["wq"]).reshape(B, S, hd.nq, h)
     k = (x @ wk).reshape(B, S, hd.nkv, h)
     v = (x @ wv).reshape(B, S, hd.nkv, h)
@@ -226,15 +236,21 @@ def cross_attention_train(cfg: ArchConfig, p: Dict[str, torch.Tensor],
                           kv_src: torch.Tensor) -> torch.Tensor:
     """Decoder cross-attention over the encoder output (no rotary, no
     mask), by ``gqa_attend`` whatever ``cfg.use_kernels`` says, as in the
-    reference."""
+    reference.  On this rank's heads: both inputs are replicated and
+    enter column-parallel weights."""
     B, S, _ = x.shape
     T = kv_src.shape[1]
     h = cfg.resolved_head_dim()
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, h)
-    k = (kv_src @ p["wk"]).reshape(B, T, cfg.n_kv_heads, h)
-    v = (kv_src @ p["wv"]).reshape(B, T, cfg.n_kv_heads, h)
-    out = gqa_attend(q, k, v, None, softmax_scale=h ** -0.5)
-    return out.reshape(B, S, -1) @ p["wo"]
+    hd = heads(cfg)
+    if hd.tp:
+        x, kv_src = ax.copy_to_model(x), ax.copy_to_model(kv_src)
+    wk, wv = kv_weights(cfg, p)
+    q = (x @ p["wq"]).reshape(B, S, hd.nq, h)
+    k = (kv_src @ wk).reshape(B, T, hd.nkv, h)
+    v = (kv_src @ wv).reshape(B, T, hd.nkv, h)
+    out = gqa_attend(q, *kv_for_heads(cfg, k, v), None,
+                     softmax_scale=h ** -0.5)
+    return out_proj(cfg, p, out)
 
 
 # ---------------------------------------------------------------------------

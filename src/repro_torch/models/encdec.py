@@ -12,7 +12,10 @@ checkpointed under ``cfg.remat``, as the reference's ``lax.scan`` of a
 self-attention reaches the flash kernel non-causal and the decoder's
 causal; cross-attention, and the decoder's self-attention in
 ``prefill`` and ``decode_step``, stay on the einsum path, as in the
-reference.
+reference.  Under a ``model`` axis every attention (self and cross) runs
+on the rank's heads and caches its K/V heads, the MLPs on its columns;
+the embedding and the loss are vocab-parallel where the vocabulary
+divides the axis, else whole on every rank.
 """
 from __future__ import annotations
 
@@ -23,7 +26,6 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.psg import scan
-from repro_torch.distributed.axes import active_mesh, require_data_parallel
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     chunked_cross_entropy,
@@ -96,19 +98,19 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
     """Mean next-token cross-entropy of the decoder over
     ``batch["tokens"]`` (B, S + 1) given ``batch["frames"]`` (B, T, D);
     labels below 0 are masked out.  Returns (loss, metrics)."""
-    require_data_parallel(active_mesh(), "the encoder-decoder family")
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     enc_out = encode(cfg, params, batch["frames"].to(
         params["final_norm"].dtype))
-    x = embed_tokens(params["embed"], inputs)
+    x = embed_tokens(params["embed"], inputs, cfg)
     h, _ = scan(lambda x, p: (_dec_block_train(cfg, enc_out, x, p), None), x,
                 unbind_layers(params["decoder"], cfg.n_layers),
                 name="decoder", remat=cfg.remat)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     mask = (labels >= 0).float()
     loss_sum, count = chunked_cross_entropy(
-        params["embed"], h, torch.clamp(labels, min=0), mask, cfg.loss_chunk)
+        params["embed"], h, torch.clamp(labels, min=0), mask, cfg.loss_chunk,
+        cfg)
     loss = loss_sum / torch.clamp(count, min=1.0)
     return loss, {"ce_loss": loss, "loss": loss, "tokens": count}
 
@@ -118,14 +120,14 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
 # ---------------------------------------------------------------------------
 
 class EncDecCache(NamedTuple):
-    self_kv: attn.KVCache      # (L, B, S_max, n_kv, h)
+    self_kv: attn.KVCache      # (L, B, S_max, n_kv, h), the rank's K/V heads
     cross_k: torch.Tensor      # (L, B, T, n_kv, h): projected encoder output
     cross_v: torch.Tensor
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: torch.dtype, device) -> EncDecCache:
-    cross = (cfg.n_layers, batch, cfg.frontend_len, cfg.n_kv_heads,
+    cross = (cfg.n_layers, batch, cfg.frontend_len, attn.heads(cfg).nkv,
              cfg.resolved_head_dim())
     return EncDecCache(
         attn.init_kv_cache(cfg, batch, max_len, cfg.n_layers, dtype, device),
@@ -139,13 +141,13 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any],
     """Encode the frames and run the decoder over the prompt, priming the
     self K/V (``max_len`` positions, zeros after S) and each layer's
     projected cross K/V.  Returns (last-position logits, cache)."""
-    require_data_parallel(active_mesh(), "the encoder-decoder family")
     tokens = batch["tokens"]
     B, S = tokens.shape
     enc_out = encode(cfg, params, batch["frames"].to(
         params["final_norm"].dtype))
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, cfg)
     hd = cfg.resolved_head_dim()
+    nkv = attn.heads(cfg).nkv
     T = enc_out.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     pad = (0, 0, 0, 0, 0, max_len - S)          # zeros after position S
@@ -154,8 +156,9 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any],
         p = layer_params(params["decoder"], i)
         xn = rms_norm(x, p["self_norm"], cfg.norm_eps)
         q, k, v = attn.qkv(cfg, p["self_attn"], xn, positions)
-        o = attn.attend(q, k, v, causal=True, softmax_scale=hd ** -0.5)
-        h = x + o.reshape(B, S, -1) @ p["self_attn"]["wo"]
+        o = attn.attend(q, *attn.kv_for_heads(cfg, k, v), causal=True,
+                        softmax_scale=hd ** -0.5)
+        h = x + attn.out_proj(cfg, p["self_attn"], o)
         h = h + attn.cross_attention_train(
             cfg, p["cross_attn"], rms_norm(h, p["cross_norm"], cfg.norm_eps),
             enc_out)
@@ -163,12 +166,11 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any],
                                                   cfg.norm_eps))
         ks.append(F.pad(k, pad))
         vs.append(F.pad(v, pad))
-        cks.append((enc_out @ p["cross_attn"]["wk"])
-                   .reshape(B, T, cfg.n_kv_heads, hd))
-        cvs.append((enc_out @ p["cross_attn"]["wv"])
-                   .reshape(B, T, cfg.n_kv_heads, hd))
+        wk, wv = attn.kv_weights(cfg, p["cross_attn"])
+        cks.append((enc_out @ wk).reshape(B, T, nkv, hd))
+        cvs.append((enc_out @ wv).reshape(B, T, nkv, hd))
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_for(params["embed"], h[:, -1:, :])
+    logits = logits_for(params["embed"], h[:, -1:, :], cfg)
     lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, EncDecCache(
         attn.KVCache(torch.stack(ks), torch.stack(vs), lengths),
@@ -181,10 +183,10 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: EncDecCache,
     the cache one token longer).  Each layer's new self K/V is written into
     the cache's buffers in place (``attention_decode``); the cross K/V are
     read as they are."""
-    require_data_parallel(active_mesh(), "the encoder-decoder family")
     kv = cache.self_kv
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, cfg)
     hd = cfg.resolved_head_dim()
+    nq = attn.heads(cfg).nq
     B = x.shape[0]
     for i in range(cfg.n_layers):
         p = layer_params(params["decoder"], i)
@@ -193,12 +195,13 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: EncDecCache,
                                         kv.v[i], kv.length)
         h = x + o
         hn = rms_norm(h, p["cross_norm"], cfg.norm_eps)
-        q = (hn @ p["cross_attn"]["wq"]).reshape(B, 1, cfg.n_heads, hd)
-        co = attn.gqa_attend(q, cache.cross_k[i], cache.cross_v[i], None,
+        q = (hn @ p["cross_attn"]["wq"]).reshape(B, 1, nq, hd)
+        co = attn.gqa_attend(q, *attn.kv_for_heads(cfg, cache.cross_k[i],
+                                                   cache.cross_v[i]), None,
                              softmax_scale=hd ** -0.5)
-        h = h + co.reshape(B, 1, -1) @ p["cross_attn"]["wo"]
+        h = h + attn.out_proj(cfg, p["cross_attn"], co)
         x = h + mlp_apply(cfg, p["mlp"], rms_norm(h, p["mlp_norm"],
                                                   cfg.norm_eps))
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_for(params["embed"], h)
+    logits = logits_for(params["embed"], h, cfg)
     return logits, cache._replace(self_kv=kv._replace(length=kv.length + 1))

@@ -8,7 +8,10 @@ the PSG nests a Branch vertex in the layer Loop, as the reference's does:
 exactly the control structure the paper's backtracking walks through.  Training
 attention is ``attention_train`` (the flash kernel under
 ``cfg.use_kernels``); prefill's is ``attend`` (einsum or chunked), as in
-the reference.
+the reference.  Under a ``model`` axis the SSD layers run on the rank's
+heads (:mod:`repro_torch.models.mamba2`) and the shared block on its
+attention heads and MLP columns, whose collectives sit inside the
+Branch's arm; the embedding and the loss are vocab-parallel.
 """
 from __future__ import annotations
 
@@ -18,7 +21,6 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.psg import cond, scan
-from repro_torch.distributed.axes import active_mesh, require_data_parallel
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (
@@ -88,14 +90,14 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy over ``batch["tokens"]`` (B, S + 1);
     labels below 0 are masked out.  Returns (loss, metrics)."""
-    require_data_parallel(active_mesh(), "the hybrid family")
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    x = embed_tokens(params["embed"], inputs)
+    x = embed_tokens(params["embed"], inputs, cfg)
     h = backbone_train(cfg, params, x)
     mask = (labels >= 0).float()
     loss_sum, count = chunked_cross_entropy(
-        params["embed"], h, torch.clamp(labels, min=0), mask, cfg.loss_chunk)
+        params["embed"], h, torch.clamp(labels, min=0), mask, cfg.loss_chunk,
+        cfg)
     loss = loss_sum / torch.clamp(count, min=1.0)
     return loss, {"ce_loss": loss, "loss": loss, "tokens": count}
 
@@ -106,14 +108,14 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
 
 class HybridCache(NamedTuple):
     ssm: mamba2.SSMState          # stacked (L, ...)
-    k: torch.Tensor               # (sites, B, S_max, n_kv, h)
+    k: torch.Tensor               # (sites, B, S_max, n_kv, h): the rank's
     v: torch.Tensor
     length: torch.Tensor          # (B,) int32
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: torch.dtype, device) -> HybridCache:
-    kv_shape = (n_attn_sites(cfg), batch, max_len, cfg.n_kv_heads,
+    kv_shape = (n_attn_sites(cfg), batch, max_len, attn.heads(cfg).nkv,
                 cfg.resolved_head_dim())
     return HybridCache(
         mamba2.init_ssm_state(cfg, batch, cfg.n_layers, dtype, device),
@@ -143,9 +145,8 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: HybridCache,
     K/V buffers in place (one slot a row, ``attention_decode``); the SSM
     states are new tensors, stacked afresh, so the caller's states are
     left as they are."""
-    require_data_parallel(active_mesh(), "the hybrid family")
     shared = params["shared"]
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, cfg)
     convs, hs = [], []
     for idx in range(cfg.n_layers):
         p = layer_params(params["layers"], idx)
@@ -161,7 +162,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: HybridCache,
         convs.append(conv_s)
         hs.append(h)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_for(params["embed"], h)
+    logits = logits_for(params["embed"], h, cfg)
     return logits, cache._replace(
         ssm=mamba2.SSMState(torch.stack(convs), torch.stack(hs)),
         length=cache.length + 1)
@@ -173,22 +174,22 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any],
     """Chunked prefill: SSD chunk scan per layer + shared-attn KV capture
     into K/V buffers of ``max_len`` positions that this function allocates
     and fills in place, site by site (zeros after position S)."""
-    require_data_parallel(active_mesh(), "the hybrid family")
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, cfg)
     shared = params["shared"]
     hd = cfg.resolved_head_dim()
-    kbuf = torch.zeros((n_attn_sites(cfg), B, max_len, cfg.n_kv_heads, hd),
-                       dtype=x.dtype, device=x.device)
+    kbuf = torch.zeros((n_attn_sites(cfg), B, max_len, attn.heads(cfg).nkv,
+                        hd), dtype=x.dtype, device=x.device)
     vbuf = torch.zeros_like(kbuf)
     positions = torch.arange(S, device=x.device)[None, :]
     convs, hs = [], []
     def shared_block(x, site):
         xn = rms_norm(x, shared["attn_norm"], cfg.norm_eps)
         q, k, v = attn.qkv(cfg, shared["attn"], xn, positions)
-        o = attn.attend(q, k, v, causal=True, softmax_scale=hd ** -0.5)
-        x = x + o.reshape(B, S, -1) @ shared["attn"]["wo"]
+        o = attn.attend(q, *attn.kv_for_heads(cfg, k, v), causal=True,
+                        softmax_scale=hd ** -0.5)
+        x = x + attn.out_proj(cfg, shared["attn"], o)
         x = x + mlp_apply(cfg, shared["mlp"],
                           rms_norm(x, shared["mlp_norm"], cfg.norm_eps))
         kbuf[site, :, :S] = k
@@ -208,7 +209,7 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any],
         convs.append(conv_s)
         hs.append(h)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_for(params["embed"], x[:, -1:, :])
+    logits = logits_for(params["embed"], x[:, -1:, :], cfg)
     lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
     cache = HybridCache(mamba2.SSMState(torch.stack(convs), torch.stack(hs)),
                         kbuf, vbuf, lengths)

@@ -14,15 +14,29 @@ The JAX package's sharding hints (``logical_constraint``,
 ``weight_constraint``) are identities on one card and are left out.
 ``softplus`` is ``logaddexp(x, 0)``, the formula of ``jax.nn.softplus``
 (``F.softplus`` switches to the identity above 20).
+
+Under a ``model`` axis (:func:`split`) a rank runs its SSD heads, or,
+where the heads do not divide the axis, every head on its slice of the
+head dim (``ssm_pdim``, the reference's fallback; the scan is
+independent along P).  The z/x streams (and dt under the head split) are
+column-parallel on ``copy_to_model(x)``; B and C come from whole weights
+on ``x`` itself, and their conv outputs pass ``copy_to_model`` once
+before the scan, whose rank only sees its heads' use of them.  Under the
+P split dt, A and D are whole too, each summed the same way.  The gated
+norm adds the ranks' sums of squares (:func:`~repro_torch.distributed.
+axes.sum_over_model`) and ``out_proj`` is row-parallel.  A rank's decode
+state is its own: the packed conv state ``[its x channels | B | C]`` and
+the SSM state of its heads (or P slice).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import axes as ax
 from repro_torch.models.params import P
 
 
@@ -50,6 +64,34 @@ def ssd_block_specs(cfg: ArchConfig) -> Dict[str, P]:
         "gate_norm": P((hh, pd), ("ssm_heads", "ssm_pdim"), init="zeros"),
         "out_proj": P((hh, pd, d), ("ssm_heads", "ssm_pdim", "embed")),
     }
+
+
+class Split(NamedTuple):
+    """How the active rules split one SSD block over the ``model`` axis."""
+    dim: Optional[int]   # 1: heads, 2: head dim (of w_x's (d, H, P)), None
+    heads: int           # this rank's heads
+    pdim: int            # and their width
+
+    @property
+    def tp(self) -> bool:
+        return self.dim is not None
+
+    @property
+    def inner(self) -> int:
+        return self.heads * self.pdim
+
+
+def split(cfg: ArchConfig) -> Split:
+    """This rank's part of the SSD block under the active rules."""
+    hh, pd = cfg.ssm_heads, cfg.ssm_head_dim
+    d = ax.model_dim(("embed", "ssm_heads", "ssm_pdim"),
+                     (cfg.d_model, hh, pd))
+    m = ax.model_size()
+    if d == 1:
+        return Split(1, hh // m, pd)
+    if d == 2:
+        return Split(2, hh, pd // m)
+    return Split(None, hh, pd)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -145,22 +187,61 @@ class SSMState(NamedTuple):
 
 def init_ssm_state(cfg: ArchConfig, batch: int, n_layers: int,
                    dtype: torch.dtype, device) -> SSMState:
-    di, n = cfg.d_inner, cfg.ssm_state
+    """Zero states of this rank's part of the block (:func:`split`)."""
+    sp, n = split(cfg), cfg.ssm_state
     return SSMState(
-        torch.zeros((n_layers, batch, cfg.conv_width - 1, di + 2 * n),
+        torch.zeros((n_layers, batch, cfg.conv_width - 1, sp.inner + 2 * n),
                     dtype=dtype, device=device),
-        torch.zeros((n_layers, batch, cfg.ssm_heads, n, cfg.ssm_head_dim),
+        torch.zeros((n_layers, batch, sp.heads, n, sp.pdim),
                     dtype=torch.float32, device=device),
     )
 
 
-def _rms_norm_hp(y: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMS norm over the flattened (H, P) feature dims. y: (B,S,H,P)."""
+def _rms_norm_hp(y: torch.Tensor, w: torch.Tensor, eps: float,
+                 width: Optional[int] = None) -> torch.Tensor:
+    """RMS norm over the flattened (H, P) feature dims. y: (B,S,H,P).
+    With ``width`` (the whole H·P) y is a rank's part of the features:
+    the ranks' sums of squares are added over ``model``."""
     dt = y.dtype
     y32 = y.float()
-    ms = torch.mean(y32 * y32, dim=(-2, -1), keepdim=True)
+    if width is None:
+        ms = torch.mean(y32 * y32, dim=(-2, -1), keepdim=True)
+    else:
+        ms = ax.sum_over_model(torch.sum(y32 * y32, dim=(-2, -1),
+                                         keepdim=True)) / width
     y32 = y32 * torch.rsqrt(ms + eps)
     return (y32 * (1.0 + w.float())).to(dt)
+
+
+def _streams(p: Dict[str, torch.Tensor], x: torch.Tensor, sp: Split,
+             eq: str):
+    """The block's input projections of ``x`` (``eq`` the einsum of the
+    3-D x streams): z, x, B, C and dt, on this rank's part."""
+    xc = ax.copy_to_model(x) if sp.tp else x      # column-parallel streams
+    z = torch.einsum(eq, xc, p["w_z"])
+    x_raw = torch.einsum(eq, xc, p["w_x"])
+    dt = (xc if sp.dim == 1 else x) @ p["w_dt"]
+    return z, x_raw, x @ p["w_B"], x @ p["w_C"], dt
+
+
+def _scan_params(sp: Split, p: Dict[str, torch.Tensor], dt: torch.Tensor):
+    """(dt, A, D) after the bias and softplus; under the P split they are
+    whole on every rank, their gradients each rank's part: summed."""
+    dt = softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    D = p["D"]
+    if sp.dim == 2:
+        dt, A, D = (ax.copy_to_model(t) for t in (dt, A, D))
+    return dt, A, D
+
+
+def _out(cfg: ArchConfig, p: Dict[str, torch.Tensor], sp: Split,
+         y: torch.Tensor, eq: str) -> torch.Tensor:
+    """The gated norm's output through the row-parallel ``out_proj``."""
+    y = _rms_norm_hp(y, p["gate_norm"], cfg.norm_eps,
+                     cfg.d_inner if sp.tp else None)
+    out = torch.einsum(eq, y, p["out_proj"])
+    return ax.reduce_from_model(out) if sp.tp else out
 
 
 def ssd_block_train(cfg: ArchConfig, p: Dict[str, torch.Tensor],
@@ -171,17 +252,14 @@ def ssd_block_train(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     end so prefill can hand off to O(1) decode.
     """
     B, S, _ = x.shape
-    di = cfg.d_inner
-    z = torch.einsum("bsd,dhp->bshp", x, p["w_z"])
-    x_raw = torch.einsum("bsd,dhp->bshp", x, p["w_x"])        # (B,S,H,P)
-    B_raw = x @ p["w_B"]
-    C_raw = x @ p["w_C"]
-    dt = x @ p["w_dt"]
+    n, sp = cfg.ssm_state, split(cfg)
+    z, x_raw, B_raw, C_raw, dt = _streams(p, x, sp, "bsd,dhp->bshp")
     xh = _causal_conv(x_raw, p["conv_x_w"], p["conv_x_b"])
     Bm = _causal_conv(B_raw, p["conv_B_w"], p["conv_B_b"])
     Cm = _causal_conv(C_raw, p["conv_C_w"], p["conv_C_b"])
-    dt = softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"].float())
+    if sp.tp:               # one all-reduce of B and C in the backward
+        Bm, Cm = ax.copy_to_model(torch.cat([Bm, Cm], -1)).split(n, -1)
+    dt, A, D = _scan_params(sp, p, dt)
     if cfg.use_kernels:
         # imported here, as in the reference: kernels/ssd_scan/ref.py
         # imports ssd_chunked from this module
@@ -191,16 +269,15 @@ def ssd_block_train(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     else:
         y, h_final = ssd_chunked(xh.float(), dt, A, Bm.float(), Cm.float(),
                                  cfg.ssm_chunk, return_final=True)
-    y = y + p["D"][None, None, :, None].float() * xh.float()
+    y = y + D[None, None, :, None].float() * xh.float()
     y = y.to(x.dtype)
-    y = _rms_norm_hp(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = torch.einsum("bshp,hpd->bsd", y, p["out_proj"])
+    out = _out(cfg, p, sp, y * F.silu(z), "bshp,hpd->bsd")
     if return_state:
         W = cfg.conv_width
         # decode conv state stays packed [x | B | C] for a stable cache
         # layout
         conv_state = torch.cat(
-            [x_raw[:, S - (W - 1):].reshape(B, W - 1, di),
+            [x_raw[:, S - (W - 1):].reshape(B, W - 1, sp.inner),
              B_raw[:, S - (W - 1):], C_raw[:, S - (W - 1):]], dim=-1)
         return out, (conv_state, h_final)
     return out
@@ -210,21 +287,18 @@ def ssd_block_decode(cfg: ArchConfig, p: Dict[str, torch.Tensor],
                      x: torch.Tensor,
                      state: Tuple[torch.Tensor, torch.Tensor]
                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One-token decode. x: (B,1,D); state = (conv (B,W-1,C), h (B,H,N,P))."""
+    """One-token decode. x: (B,1,D); state = (conv (B,W-1,C), h (B,H,N,P)),
+    this rank's (:func:`init_ssm_state`)."""
     conv_state, h = state
     B = x.shape[0]
-    di, n, hh, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    x0 = x[:, 0]
-    z = torch.einsum("bd,dhp->bhp", x0, p["w_z"])
-    x_new = torch.einsum("bd,dhp->bhp", x0, p["w_x"]).reshape(B, di)
-    B_new = x0 @ p["w_B"]
-    C_new = x0 @ p["w_C"]
-    dt = x0 @ p["w_dt"]
-    packed_new = torch.cat([x_new, B_new, C_new], dim=-1)
+    n, sp = cfg.ssm_state, split(cfg)
+    di = sp.inner
+    z, x_new, B_new, C_new, dt = _streams(p, x[:, 0], sp, "bd,dhp->bhp")
+    packed_new = torch.cat([x_new.reshape(B, di), B_new, C_new], dim=-1)
     # rolling conv window: state holds previous W-1 packed inputs
     window = torch.cat([conv_state, packed_new[:, None, :]], dim=1)  # (B,W,C)
     new_conv_state = window[:, 1:]
-    xw = window[..., :di].reshape(B, -1, hh, pd)              # (B,W,H,P)
+    xw = window[..., :di].reshape(B, -1, sp.heads, sp.pdim)   # (B,W,H,P)
     conv_x = torch.einsum("bwhp,whp->bhp", xw, p["conv_x_w"]) + p["conv_x_b"]
     conv_B = torch.einsum("bwn,wn->bn", window[..., di:di + n],
                           p["conv_B_w"]) + p["conv_B_b"]
@@ -233,14 +307,11 @@ def ssd_block_decode(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     xh = F.silu(conv_x).float()                               # (B,H,P)
     Bm = F.silu(conv_B).float()
     Cm = F.silu(conv_C).float()
-    dt = softplus(dt.float() + p["dt_bias"])                  # (B,H)
-    A = -torch.exp(p["A_log"].float())
+    dt, A, D = _scan_params(sp, p, dt)                       # dt (B,H)
     dA = torch.exp(dt * A)                                    # (B,H)
     dBx = torch.einsum("bh,bn,bhp->bhnp", dt, Bm, xh)
     h = h * dA[..., None, None] + dBx
-    y = torch.einsum("bn,bhnp->bhp", Cm, h) + p["D"][None, :, None] * xh
+    y = torch.einsum("bn,bhnp->bhp", Cm, h) + D[None, :, None] * xh
     y = y.to(x.dtype)
-    y = _rms_norm_hp((y * F.silu(z))[:, None], p["gate_norm"],
-                     cfg.norm_eps)[:, 0]
-    out = torch.einsum("bhp,hpd->bd", y, p["out_proj"])
-    return out[:, None, :], (new_conv_state, h)
+    out = _out(cfg, p, sp, (y * F.silu(z))[:, None], "bshp,hpd->bsd")
+    return out, (new_conv_state, h)

@@ -4,7 +4,10 @@ Per-layer parameters keep the JAX package's stacked layout; the
 reference's ``jax.lax.scan`` over layers is
 :func:`repro_torch.core.psg.scan` over per-layer views, with each block
 checkpointed under ``cfg.remat`` (except where the states are
-collected, as in the reference).
+collected, as in the reference).  Under a ``model`` axis the SSD blocks
+run on the rank's heads (:mod:`repro_torch.models.mamba2`), the tied
+embedding and the loss are vocab-parallel, and the residual stream and
+the norms are whole on every rank.
 """
 from __future__ import annotations
 
@@ -14,7 +17,6 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.psg import scan
-from repro_torch.distributed.axes import active_mesh, require_data_parallel
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (
     chunked_cross_entropy,
@@ -63,14 +65,14 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy over ``batch["tokens"]`` (B, S + 1);
     labels below 0 are masked out.  Returns (loss, metrics)."""
-    require_data_parallel(active_mesh(), "the SSM family")
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    x = embed_tokens(params["embed"], inputs)
+    x = embed_tokens(params["embed"], inputs, cfg)
     h, _ = _backbone(cfg, params, x, collect_state=False)
     mask = (labels >= 0).float()
     loss_sum, count = chunked_cross_entropy(
-        params["embed"], h, torch.clamp(labels, min=0), mask, cfg.loss_chunk)
+        params["embed"], h, torch.clamp(labels, min=0), mask, cfg.loss_chunk,
+        cfg)
     loss = loss_sum / torch.clamp(count, min=1.0)
     return loss, {"ce_loss": loss, "loss": loss, "tokens": count}
 
@@ -93,12 +95,11 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any],
             ) -> Tuple[torch.Tensor, SSMCache]:
     """Process the full prompt; returns (last-position logits, the
     per-layer states)."""
-    require_data_parallel(active_mesh(), "the SSM family")
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, cfg)
     h, (conv_s, ssm_h) = _backbone(cfg, params, x, collect_state=True)
-    logits = logits_for(params["embed"], h[:, -1:, :])
+    logits = logits_for(params["embed"], h[:, -1:, :], cfg)
     cache = SSMCache(mamba2.SSMState(conv_s, ssm_h),
                      torch.full((B,), S, dtype=torch.int32,
                                 device=x.device))
@@ -109,8 +110,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: SSMCache,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, SSMCache]:
     """One decode step. tokens: (B, 1) int; returns (logits (B, 1, V),
     the advanced states)."""
-    require_data_parallel(active_mesh(), "the SSM family")
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, cfg)
     convs, hs = [], []
     for i in range(cfg.n_layers):
         p = layer_params(params["layers"], i)
@@ -121,7 +121,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any], cache: SSMCache,
         convs.append(conv_s)
         hs.append(h)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_for(params["embed"], h)
+    logits = logits_for(params["embed"], h, cfg)
     return logits, SSMCache(mamba2.SSMState(torch.stack(convs),
                                             torch.stack(hs)),
                             cache.length + 1)

@@ -20,7 +20,12 @@ layer loop.  Without a mesh it runs no collective.
 
 ``Trainer`` is the twin of the reference's: data, the step, checkpoints
 and the ScalAna hooks (the sampled ``GraphProfiler``, per-step wall
-times, an injected per-rank delay for case studies).
+times, an injected per-rank delay for case studies).  Its checkpoints
+are the reference's, logically unsharded: under a ``model`` axis every
+parameter, moment and residual leaf is gathered whole before a save
+(:func:`whole_state`), one rank writes, and a restore loads the whole
+leaves and keeps the rank's shards (:func:`local_tree`), so a checkpoint
+moves between meshes, one process and the JAX package.
 """
 from __future__ import annotations
 
@@ -218,6 +223,62 @@ def state_from_tree(tree: Dict[str, Any], like: TrainState) -> TrainState:
         step=dev(tree["step"], like.step))
 
 
+def _map_sharded(tree: Dict[str, Any], specs: Specs, fn) -> Dict[str, Any]:
+    """``fn(leaf, spec)`` over the parameter, moment and residual leaves
+    of a :func:`state_to_tree` tree (``spec`` the parameter's); the step
+    counters as they are."""
+    def go(node, sp):
+        if isinstance(node, dict):
+            return {k: go(node[k], sp[k]) for k in node}
+        return fn(node, sp)
+
+    out = dict(tree)
+    for k in ("params", "residual"):
+        if k in tree:
+            out[k] = go(tree[k], specs)
+    out["opt"] = {**tree["opt"], "mu": go(tree["opt"]["mu"], specs),
+                  "nu": go(tree["opt"]["nu"], specs)}
+    return out
+
+
+def whole_state(state: TrainState, specs: Specs) -> TrainState:
+    """``state`` with every leaf split on ``model`` gathered whole under
+    the active rules (a collective that each rank of the axis joins); the
+    state itself without a ``model`` axis above 1."""
+    if ax.model_size() == 1:
+        return state
+    flat = [sp for _, sp in _walk(specs)]
+
+    def whole(tree):
+        if tree is None:
+            return None
+        with torch.no_grad():
+            return unflatten_like(tree, [
+                ax.gather_shards(t, sp.axes, sp.shape)
+                for t, sp in zip(leaves(tree), flat)])
+
+    return TrainState(params=whole(state.params),
+                      opt=AdamWState(step=state.opt.step,
+                                     mu=whole(state.opt.mu),
+                                     nu=whole(state.opt.nu)),
+                      residual=whole(state.residual), step=state.step)
+
+
+def whole_like(tree: Dict[str, Any], specs: Specs) -> Dict[str, Any]:
+    """A :func:`state_to_tree` tree of this rank's shards as a template
+    of the whole leaves' shapes (zero-stride arrays, no storage): what a
+    checkpoint's manifest is checked against."""
+    return _map_sharded(tree, specs, lambda a, sp: np.broadcast_to(
+        np.zeros((), a.dtype), sp.shape))
+
+
+def local_tree(tree: Dict[str, Any], specs: Specs) -> Dict[str, Any]:
+    """This rank's shards, under the active rules, of a tree of whole
+    leaves (a restored checkpoint)."""
+    return _map_sharded(tree, specs, lambda a, sp: ax.local_shard(
+        torch.from_numpy(np.asarray(a)), sp.axes).numpy())
+
+
 # ---------------------------------------------------------------------------
 # The training loop
 # ---------------------------------------------------------------------------
@@ -243,8 +304,9 @@ class Trainer:
     without a card.  With a ``mesh`` (a DeviceMesh over the process
     group, :func:`repro_torch.launch.mesh.make_host_mesh`) each rank
     reads its shard of the global batch and the step averages over the
-    ``data`` axis.  Checkpoints do not know ranks yet, so a ``model``
-    axis above 1 takes no ``checkpoint_dir``."""
+    ``data`` axis.  Every rank joins a checkpoint's gather; the rank at
+    coordinate 0 of every mesh axis writes it, and the others wait at a
+    barrier after the last save of :meth:`train` until it is committed."""
 
     def __init__(self, run: RunConfig, *, mesh=None, rules=None,
                  arch_cfg: Optional[ArchConfig] = None,
@@ -252,12 +314,6 @@ class Trainer:
                  global_batch: Optional[int] = None,
                  inject_delay: Optional[Dict[int, float]] = None,
                  device: torch.device | str = "cuda"):
-        if (run.checkpoint_dir and mesh is not None
-                and ax.model_size(mesh) > 1):
-            raise NotImplementedError(
-                "checkpoints under a model axis above 1: every rank would "
-                "write its own shards to one directory; rank-aware "
-                "checkpoints are ROADMAP Queue 1 item 10b")
         self.run = run
         self.mesh = mesh
         self.rules = rules
@@ -320,6 +376,36 @@ class Trainer:
         return (use_rules(self.mesh, self.rules) if self.mesh is not None
                 else contextlib.nullcontext())
 
+    def _writes(self) -> bool:
+        """Whether this rank writes the checkpoints (coordinate 0 of every
+        mesh axis; the one process without a mesh)."""
+        return self.mesh is None or not any(self.mesh.get_coordinate())
+
+    def _save(self, step: int, state: TrainState, last: bool) -> None:
+        """Checkpoint ``state`` whole at ``step`` (the gather under the
+        rules, on every rank); ``last`` writes it blocking and holds every
+        rank at a barrier until it is committed."""
+        with self._rules():
+            whole = whole_state(state, self.model.specs)
+        if self._writes():
+            self.ckpt.save(step, state_to_tree(whole), blocking=last)
+        del whole
+        if last and self.mesh is not None and dist.get_world_size() > 1:
+            dist.barrier()
+
+    def restore(self, state: TrainState):
+        """(step, state) from the latest checkpoint, its whole leaves cut
+        to this rank's shards (``state`` gives the structure, devices and
+        dtypes); None when there is none."""
+        specs = self.model.specs
+        like = whole_like(state_to_tree(state), specs)
+        restored = self.ckpt.restore_latest(like)
+        if restored is None:
+            return None
+        step, tree, _ = restored
+        with self._rules():
+            return step, state_from_tree(local_tree(tree, specs), state)
+
     def _put_batch(self, np_batch: Dict[str, np.ndarray]) -> Batch:
         return to_device(np_batch, self.device)
 
@@ -341,10 +427,9 @@ class Trainer:
         if state is None:
             state = self.init_state()
             if resume and self.ckpt is not None:
-                restored = self.ckpt.restore_latest(state_to_tree(state))
+                restored = self.restore(state)
                 if restored is not None:
-                    start_step, tree, _ = restored
-                    state = state_from_tree(tree, state)
+                    start_step, state = restored
 
         if self.run.scalana and self.profiler is None:
             batch0 = self._put_batch(self.dataset.batch(start_step))
@@ -374,10 +459,9 @@ class Trainer:
                      "wall_s": dt})
                 if (self.ckpt is not None and self.run.checkpoint_every
                         and (i + 1) % self.run.checkpoint_every == 0):
-                    self.ckpt.save(i + 1, state_to_tree(state))
+                    self._save(i + 1, state, last=False)
         if self.ckpt is not None:
-            self.ckpt.save(start_step + num_steps, state_to_tree(state),
-                           blocking=True)
+            self._save(start_step + num_steps, state, last=True)
         return state
 
     # ------------------------------------------------------------------

@@ -94,13 +94,51 @@ def test_logical_constraint_noop_without_mesh():
     assert ax.weight_constraint(x, "embed", "mlp") is x
 
 
-def test_constraints_identity_on_data_and_raise_on_model():
+TP_FAMILIES = ("mamba2-130m", "zamba2-2.7b", "seamless-m4t-medium")
+
+FAMILY_LOSS = textwrap.dedent("""
+    import sys
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_dataset
+    from repro_torch.distributed import axes as ax
+    from repro_torch.launch.mesh import init_group, make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.training.trainer import to_device
+
+    rank, world, init, out = (int(sys.argv[1]), int(sys.argv[2]),
+                              sys.argv[3], sys.argv[4])
+    init_group(rank, world, "file://" + init, device="cpu", timeout_s=60)
+    try:
+        res = {}
+        mesh = make_host_mesh(2, device="cpu")
+        for arch in %r:
+            cfg = get_smoke(arch)
+            model = build_model(cfg, device="cpu")
+            batch = to_device(make_dataset(cfg, ShapeConfig(
+                "dp", 16, 4, "train")).batch(0), "cpu")
+            with ax.use_rules(mesh), torch.no_grad():
+                params = model.init(model.generator(0))
+                res[arch] = float(model.train_loss(params, batch)[0])
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+""" % (TP_FAMILIES,))
+
+
+def test_constraints_identity_on_data_and_raise_on_model(tmp_path):
     """Identity on ``data``.  Under a ``model`` axis a rank's tensors are
-    its shards already, so the hint is the identity for the transformer
-    families' names, and the model-axis collective runs where a layer
-    calls one (an all-reduce over the model group, traced here for rank
-    0 of a fake two-rank group).  The SSM, hybrid and encoder-decoder
-    families, and the FSDP gather, still raise (ROADMAP item 10b)."""
+    its shards already, so the hint is the identity for every family's
+    names, and the model-axis collective runs where a layer calls one (an
+    all-reduce over the model group, traced here for rank 0 of a fake
+    two-rank group).  A sequence dim on ``model`` and the FSDP gather
+    still raise (ROADMAP item 10b).  The SSM, hybrid and encoder-decoder
+    families' smoke losses run on rank 0's shards under a (1, 2) fake
+    group (whose collectives move nothing), and two Gloo ranks give the
+    one-process loss within 1e-5."""
     from repro_torch.launch.mesh import fake_process_group, make_host_mesh
     x = torch.ones(4, 4)
     with ax.use_rules({"data": 4, "model": 1}):
@@ -108,22 +146,40 @@ def test_constraints_identity_on_data_and_raise_on_model():
     with ax.use_rules({"data": 2, "model": 2},
                       options={"gather_weights": True}):
         assert ax.logical_constraint(x, "batch", "heads") is x
-        with pytest.raises(NotImplementedError, match="10b"):
-            ax.logical_constraint(x, "batch", "ssm_inner")
+        for name in ("ssm_inner", "ssm_heads", "ssm_pdim"):
+            assert ax.logical_constraint(x, "batch", name) is x
         with pytest.raises(NotImplementedError, match="10b"):
             ax.weight_constraint(x, "embed", "mlp")
+    with ax.use_rules({"data": 1, "model": 2},
+                      dict(ax.DEFAULT_RULES, res_seq="model")):
+        with pytest.raises(NotImplementedError, match="10b"):
+            ax.logical_constraint(x, "batch", "res_seq", "embed")
     with fake_process_group(2):
         with ax.use_rules(make_host_mesh(2, device="cpu")):
             traced = psg_lib.trace(ax.reduce_from_model, x)
     (comm,) = traced.psg.by_kind(COMM)
     assert comm.comm_kind == "all_reduce"
     assert comm.meta["replica_groups"] == [[0, 1]]
-    for arch in ("mamba2-130m", "zamba2-2.7b", "seamless-m4t-medium"):
-        model = build_model(get_smoke(arch), device="cpu")
-        with ax.use_rules({"data": 1, "model": 2}):
-            with pytest.raises(NotImplementedError, match="10b"):
-                model.train_loss({}, {"tokens": torch.ones(1, 9).long()})
+    want = {}
+    for arch in TP_FAMILIES:
+        cfg = get_smoke(arch)
+        model = build_model(cfg, device="cpu")
+        batch = to_device(make_dataset(cfg, SHAPE).batch(0), "cpu")
+        with torch.no_grad():
+            want[arch] = float(model.train_loss(
+                model.init(model.generator(0)), batch)[0])
+        with fake_process_group(2), torch.no_grad():
+            with ax.use_rules(make_host_mesh(2, device="cpu")):
+                params = model.init(model.generator(0))
+                loss = model.train_loss(params, batch)[0]
+        assert torch.isfinite(loss) and loss.shape == ()
+        assert params["embed"]["embedding"].shape[0] == cfg.vocab_size // 2
     assert ax.active_mesh() is None
+    for rank in _ranks(2, tmp_path, FAMILY_LOSS):
+        assert rank.keys() == want.keys()
+        for arch, loss in rank.items():
+            np.testing.assert_allclose(loss, want[arch], rtol=1e-5,
+                                       err_msg=arch)
 
 
 MESHES = [((1, 1), ("data", "model")), ((2, 1), ("data", "model")),

@@ -3,9 +3,12 @@ recorder (``scenarios/record.py``) on the CPU.
 
 * ``rules_for_shape`` equals the reference's for every config and shape
   in ``SHAPES`` on (16, 16) axis sizes.
-* ``build_cell`` for tinyllama and moonshot smoke: train, prefill and
-  decode each trace for rank 0 of a world-8 fake process group on a
-  (4, 2) mesh, with the collectives of both axes as Comm vertices; the
+* ``build_cell`` for the smoke configs of tinyllama, moonshot, mamba2,
+  zamba2 and seamless: train, prefill and decode each trace for rank 0
+  of a world-8 fake process group on a (4, 2) mesh, with the collectives
+  of both axes as Comm vertices, the decode cache in the rank's own
+  shapes (the packed SSD conv state is its x channels and the whole B
+  and C, not half of the packed dim); the
   state shardings equal the reference's ``train_state_shardings`` specs
   on the same mesh (computed in a subprocess with eight forced host
   devices, the idiom of ``src/repro/scenarios/record.py``).
@@ -21,6 +24,7 @@ import sys
 import textwrap
 
 import pytest
+import torch
 from jax.sharding import AbstractMesh
 
 from repro.configs import SHAPES as JAX_SHAPES
@@ -41,7 +45,8 @@ from repro_torch.scenarios.source import load_trace
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 REF_TRACES = os.path.join(SRC, "repro", "scenarios", "traces")
-CELL_ARCHS = ("tinyllama-1.1b", "moonshot-v1-16b-a3b")
+CELL_ARCHS = ("tinyllama-1.1b", "moonshot-v1-16b-a3b", "mamba2-130m",
+              "zamba2-2.7b", "seamless-m4t-medium")
 KINDS = (("train", "train_4k", 32), ("prefill", "prefill_32k", 16),
          ("decode", "decode_32k", 16))
 
@@ -118,6 +123,10 @@ def cells():
                 out[arch, kind] = (cell, traced.psg,
                                    shardings.train_state_shardings(
                                        cell.model, mesh))
+                if kind == "decode":   # the cache the model makes a rank
+                    with ax.use_rules(mesh, cell.rules):
+                        out[arch, "cache"] = cell.model.init_cache(1, seq,
+                                                                   "meta")
     return out
 
 
@@ -141,6 +150,14 @@ def test_build_cell_traces_for_rank_0_of_8(cells, arch, kind):
     assert all(t.device.type == "meta" for t in args)
     if kind == "train":
         assert cell.args[1]["tokens"].shape == (1, 33)
+    if kind == "decode":           # the rank's cache, as the model makes it
+        want, got = cells[arch, "cache"], cell.args[1]
+        assert [t.shape for t in torch.utils._pytree.tree_leaves(got)] == \
+            [t.shape for t in torch.utils._pytree.tree_leaves(want)]
+        if cfg.family in ("ssm", "hybrid"):
+            conv = got.ssm.conv
+            assert conv.shape[-1] == cfg.d_inner // 2 + 2 * cfg.ssm_state
+            assert got.ssm.h.shape[2] == cfg.ssm_heads // 2
 
 
 @pytest.mark.parametrize("arch", CELL_ARCHS)

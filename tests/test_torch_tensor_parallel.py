@@ -285,28 +285,6 @@ def test_the_psg_shows_the_tensor_parallel_collectives(tp_runs):
                    for v in root if v is not data[0])
 
 
-def test_trainer_refuses_checkpoints_under_a_model_axis(tmp_path):
-    """Checkpoints do not know ranks yet: every rank of a model axis would
-    write its own shards to the one directory, and a restore would load
-    another rank's.  So the Trainer refuses a checkpoint directory under
-    a model axis above 1 (ROADMAP item 10b), and takes one on a data
-    axis."""
-    from repro_torch.launch.mesh import fake_process_group, make_host_mesh
-    from repro_torch.training.trainer import Trainer
-    run = RunConfig(checkpoint_dir=str(tmp_path / "ckpt"))
-    kw = dict(arch_cfg=get_smoke("tinyllama-1.1b"), shape=SHAPE,
-              device="cpu")
-    with fake_process_group(2):
-        mesh = make_host_mesh(2, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            Trainer(run, mesh=mesh, **kw)
-        assert Trainer(RunConfig(), mesh=mesh, **kw).ckpt is None
-        data = make_host_mesh(1, device="cpu")
-        assert Trainer(run, mesh=data, **kw).ckpt is not None
-    assert not (tmp_path / "ckpt").exists() or not any(
-        (tmp_path / "ckpt").iterdir())
-
-
 # ---------------------------------------------------------------------------
 # against the JAX package's two-host-device step
 # ---------------------------------------------------------------------------
