@@ -91,7 +91,8 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    prefilled and greedy-decoded for 16 tokens, twice, with the decode
    step's time beside its floor (every expert's weights read a step);
 11. serve — ``ServingEngine`` at full width: tinyllama-1.1b, mamba2-130m,
-   zamba2-2.7b and moonshot-v1-16b-a3b (16 layers) serve seeded prompts
+   zamba2-2.7b (18 of 54 layers) and moonshot-v1-16b-a3b
+   (16 layers) serve seeded prompts
    of 16-64 tokens with continuous batching, greedy and sampled; every
    request completes, uid 0 alone equals its batched stream, a second
    engine gives every stream again; tokens/s, latency, the decode step's
@@ -123,7 +124,8 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    steps against 4 + 4 across a checkpoint, within 1e-5, in a temporary
    directory that is deleted;
 14. scaling — ``repro_torch.launch.scaling_profile`` at scales 1, 2 and 4
-   (12 smoke steps, each scale its worker processes: NCCL for one rank,
+   (mamba2-130m at full width, 6 of its 24 layers, 12
+   steps, each scale its worker processes: NCCL for one rank,
    Gloo for the ranks that time-share the card; detection in this
    process): every scale's JSON with its ``n_procs``, congruent PSGs,
    exactly one Comm all-reduce of 4 x (parameters + 1) bytes, each
@@ -133,7 +135,8 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
 15. tensor — two ranks on a (1, 2) mesh (spawned processes, Gloo, the
    ranks time-sharing the card through the host), each holding its
    parameter shards, against the same work done by this process on the
-   card: tinyllama-1.1b at full width, 8 of its 22 layers, three train
+   card: tinyllama-1.1b at full width, 4 of its 22 layers,
+   three train
    steps at tokens (1, 2049) (the losses within 1e-4 relative, each
    rank's step-1 parameters and first moments against its slice of the
    one-process ones; the third step the profiler's sampled replay, then
@@ -158,11 +161,37 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    from a 64-token prompt (equal); mamba2's ``Trainer`` on the mesh, 2
    steps and a checkpoint, 2 more from it, against 4 unbroken (within
    1e-5), the checkpoint then loaded by this process for the same 2 steps
-   (within 1e-4 of rank 0's); zamba2-2.7b at full width and depth, the
-   kernel loss (54 ``ssd_scan`` and 9 flash launches a rank) and 16
+   (within 1e-4 of rank 0's); zamba2-2.7b at full width and 18 of its
+   54 layers, the
+   kernel loss (18 ``ssd_scan`` and 3 flash launches a rank) and 16
    greedy tokens, then one fenced train step at the deepest cut, a
-   multiple of 6 layers, that the reckoning of ``zamba_train_depth`` fits
-   on the card with both ranks (printed as ``reduced``).
+   multiple of 6 layers up to 18, that the reckoning of
+   ``zamba_train_depth`` fits on the card with both ranks (printed as
+   ``reduced``);
+17. fsdp-sp — four ranks on a ``("data", "model")`` (2, 2) mesh as in
+   phase 15 (spawned, Gloo, time-sharing the card), against the same
+   work done by this process: tinyllama-1.1b at full width and 2 of its
+   22 layers under the baseline, ``gather_weights`` (FSDP storage),
+   ``seq_shard`` (sequence parallelism) and both, three steps each at
+   tokens (2, 2049) (one for the baseline; losses within 1e-4, each
+   rank's step-1 parameters and moments against its slice of the
+   one-process ones under its storage), a fenced step timing every
+   all-reduce by group, the bytes of the rank's parameters and moments
+   (a leaf that ``spec_for`` splits on ``data`` holds exactly half its
+   baseline bytes under ``gather_weights``), its peak memory, and the
+   loss through the flash kernel on its heads (2 launches, within 1e-3
+   of its plain loss); mamba2-130m at full size under the baseline and
+   both options the same way (24 ``ssd_scan`` launches a kernel loss);
+   one ``seq_shard`` step at 2047 inputs, which do not split (the loss
+   within 1e-4); then eight ranks on (1, 8): tinyllama-1.1b at full
+   width and 2 of 22 layers, whose 4 KV heads do not divide the axis, so
+   the cache's positions are split on ``model``: a 128-token prompt and 16
+   greedy tokens equal one process's, the gathered cache within 1e-4;
+   then two ranks on (2, 1): zamba2-2.7b at full width and 6 layers
+   under ``long_500k``'s rules, a 262784-token prompt prefilled by this
+   process (through ``ssd_scan``) into a 524288-position cache, each
+   rank decoding 16 greedy tokens from its half (both halves filled),
+   equal to one process's.
 
 The detection kernels' launch counts are reset just before phase 3 and
 read just after phase 4, again just before phase 7's detect and just
@@ -178,7 +207,10 @@ phases 13 and 14 and just after (added to the JSON line's), and each
 rank's flash count of phase 15 just before its kernel loss and just
 after (added to the JSON line's), and each rank's ``ssd_scan`` and flash
 counts of phase 16 just before each kernel loss and prefill and just
-after (added to the JSON line's).
+after (added to the JSON line's), and each rank's flash and ``ssd_scan``
+counts of phase 17 just before each kernel loss and just after, and this
+process's ``ssd_scan`` count just before phase 17's long prefill and
+just after (added to the JSON line's).
 It exits non-zero, printing no
 result, when any check fails, when there is no CUDA card, or when the
 port is not next to it.  The last line is ``{"ok": true, "device":
@@ -189,6 +221,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import queue
 import re
 import statistics
 import subprocess
@@ -225,8 +258,10 @@ MODELS = [("tinyllama-1.1b", ((4, 2049), (2, 4097)), 4, 32, None),
           ("zamba2-2.7b", ((2, 2049),), 2, 16, None)]
 # (B, S, H, P, N, chunk): the reference's SSD sweep (tests/test_kernels.py),
 # a sequence shorter than its chunk, then mamba2-130m's and zamba2-2.7b's
-# loss shapes, mamba2-130m's 32768-token prefill, and the loss shapes of a
-# rank of [tensor-ssm]'s (1, 2) mesh (12 and 40 heads)
+# loss shapes, mamba2-130m's 32768-token prefill, the loss shapes of a
+# rank of [tensor-ssm]'s (1, 2) mesh (12 and 40 heads), and zamba2-2.7b's
+# 262784-token prefill of [fsdp-sp]'s long context (4106 chunks of state
+# passing; its inputs are drawn on the card)
 SSD_SWEEP = [
     (1, 64, 2, 32, 16, 32),
     (2, 128, 4, 64, 32, 64),
@@ -238,6 +273,8 @@ SSD_SWEEP = [
 SSD_FULL = [(8, 2048, 24, 64, 128, 64), (2, 2048, 80, 64, 64, 64),
             (1, 32768, 24, 64, 128, 64), (1, 2048, 12, 64, 128, 64),
             (1, 2048, 40, 64, 64, 64)]
+SSD_LONG = (1, 128 * 2053, 80, 64, 64, 64)
+SSD_FULL.append(SSD_LONG)
 SSD_TOL = 2e-4                   # tests/test_kernels.py:117-120
 # full width, relative to max |y| (max |h|): float32 sums of up to
 # Q + N = 192 products in another order, ~1e-6 of the largest value;
@@ -258,10 +295,10 @@ MOE_DECODE = 16                 # greedy tokens after a 2 x 128 prefill
 FLASH_MOE = [(2, 16, 16, 2048, 2048, 128, True),
              (1, 48, 8, 2048, 2048, 128, True)]
 # [serve]: (arch, layers kept or None, slots, requests, new tokens)
-SERVE = [("tinyllama-1.1b", None, 4, 8, 32),
-         ("mamba2-130m", None, 4, 8, 32),
-         ("zamba2-2.7b", None, 2, 4, 16),
-         ("moonshot-v1-16b-a3b", 16, 4, 6, 16)]
+SERVE = [("tinyllama-1.1b", 8, 4, 8, 32),      # 8 of 22, 8 of 24, 6 of 54
+         ("mamba2-130m", 8, 4, 8, 32),         # (one shared-attention
+         ("zamba2-2.7b", 6, 2, 4, 16),         # site), 8 of 48: the
+         ("moonshot-v1-16b-a3b", 8, 4, 6, 16)]  # script's time (host-bound)
 SERVE_MAX_SEQ = 256
 SERVE_PROMPTS = (16, 64)        # prompt lengths drawn in [16, 64]
 SERVE_PROFILED = ("tinyllama-1.1b", "moonshot-v1-16b-a3b")
@@ -975,10 +1012,18 @@ def drive_model(arch, *spec):
 
 def ssd_inputs(case, seed):
     """The reference's ``_ssd_inputs`` (tests/test_kernels.py:98-106) on
-    the card."""
+    the card; ``SSD_LONG``'s (1.3e9 elements of x) drawn there from the
+    same distributions by torch's generator."""
     import numpy as np
     import torch
     B, S, H, Pd, N, _ = case
+    if case == SSD_LONG:
+        g = torch.Generator("cuda").manual_seed(seed)
+
+        def draw(*shape):
+            return torch.randn(shape, generator=g, device="cuda")
+        return [draw(B, S, H, Pd), draw(B, S, H).abs_() * 0.1,
+                -(draw(H).abs_() + 0.1), draw(B, S, N), draw(B, S, N)]
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, S, H, Pd))
     dt = np.abs(rng.standard_normal((B, S, H))) * 0.1
@@ -1023,6 +1068,8 @@ def phase_ssd():
                       f"(tol {SSD_TOL})")
             print(f"  ssd_scan {case}: max abs err y {dy:.3g} h {dh:.3g} "
                   f"within {SSD_TOL}")
+        del args, y, h, yr, hr
+    torch.cuda.empty_cache()
     return err
 
 
@@ -1048,7 +1095,8 @@ def ssd_bound(case):
 def time_ssd():
     """The kernel at each full shape (mamba2-130m's loss shape, zamba2-
     2.7b's, mamba2-130m's 32768-token prefill, a tensor-parallel rank's
-    of each), its plain version on the same tensors, and its bounds; the first shape is the JSON line's row,
+    of each, zamba2-2.7b's long-context prefill), its plain version on the
+    same tensors, and its bounds; the first shape is the JSON line's row,
     the others are printed.  No single library call computes it."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel, ref
@@ -2123,9 +2171,10 @@ def phase_trainer(card: str) -> int:
 
 # -- phase 14: the multi-scale profiling workflow ------------------------
 
-# mamba2-130m at its published width and depth (remat off, as the
-# reference's workers run), global batch 4 x 2048 tokens at every scale
+# mamba2-130m at its published width and 6 of its 24 layers (remat off, as
+# the reference's workers run), global batch 4 x 2048 tokens at every scale
 SCALE_ARCH, SCALES, SCALE_STEPS = "mamba2-130m", (1, 2, 4), 12
+SCALE_LAYERS = 6       # of 24: the script's time with [fsdp-sp]
 SCALE_SHAPE, SCALE_TIMEOUT_S = (2048, 4), 300       # (seq, global batch)
 
 
@@ -2153,7 +2202,8 @@ def phase_scaling(card: str):
     try:
         for n in SCALES:
             t0 = time.perf_counter()
-            sp.run_scale(n, arch=SCALE_ARCH, full=True, steps=SCALE_STEPS,
+            sp.run_scale(n, arch=SCALE_ARCH, full=True, layers=SCALE_LAYERS,
+                         steps=SCALE_STEPS,
                          batch=batch, seq=seq, sample_every=4, out_dir=tmp,
                          device="cuda", timeout_s=SCALE_TIMEOUT_S,
                          backend=backend)
@@ -2163,7 +2213,8 @@ def phase_scaling(card: str):
         psgs, series, raws = sp.load_series(SCALE_ARCH, SCALES, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    nparams = build_model(get(SCALE_ARCH), device="cpu").param_count()
+    nparams = build_model(get(SCALE_ARCH).replace(n_layers=SCALE_LAYERS),
+                          device="cpu").param_count()
     for n in SCALES:
         raw = raws[n]
         comms = psgs[n].by_kind(COMM)
@@ -2227,10 +2278,11 @@ def phase_scaling(card: str):
 # -- phase 15: tensor parallelism on one card ------------------------------
 
 # two ranks on a (1, 2) mesh time-share the card over Gloo (through the
-# host): tinyllama-1.1b at full width, its depth cut to 8 of 22 layers
-# (to keep the whole script near 720 s with phase 16), moonshot-v1-16b-a3b
+# host): tinyllama-1.1b at full width, its depth cut to 4 of 22 layers
+# (to keep the whole script within its time with phases 16 and 17),
+# moonshot-v1-16b-a3b
 # at its published widths with its depth cut to 2 of 48 layers
-TENSOR_ARCH, TENSOR_LAYERS = "tinyllama-1.1b", 8
+TENSOR_ARCH, TENSOR_LAYERS = "tinyllama-1.1b", 4
 TENSOR_MOE, TENSOR_MOE_LAYERS = "moonshot-v1-16b-a3b", 2
 TENSOR_SEQ, TENSOR_STEPS, TENSOR_LR = 2048, 3, 1e-4   # tokens (1, 2049)
 TENSOR_PROMPT, TENSOR_NEW, TENSOR_TIMEOUT_S = 64, 16, 600
@@ -2676,8 +2728,9 @@ def phase_tensor(card: str) -> int:
 
 # two ranks on a (1, 2) mesh as in [tensor] (spawned, Gloo, time-sharing
 # the card): mamba2-130m and seamless-m4t-medium at their published widths
-# and depths; zamba2-2.7b at its published width and depth for the kernel
-# loss and decode, its train step at the depth that fits both ranks
+# and depths; zamba2-2.7b at its published width and 18 of its 54 layers
+# for the kernel loss and decode, its train step at the depth that fits
+# both ranks
 TSSM = ("mamba2-130m", "seamless-m4t-medium", "zamba2-2.7b")
 TSSM_SEAMLESS_SEQ = 512         # tokens (1, 513) after frames (1, 1024, 1024)
 TSSM_TRAINER_STEPS = 2          # then 2 more from the checkpoint = 4 unbroken
@@ -2689,6 +2742,10 @@ RESUME_TOL_TP = 1e-5
 # shards over its activations (PERF.md); the two ranks may take 76 GB of
 # the 80 GB card, the rest is their contexts and this process
 TSSM_STEP_COPIES, TSSM_CARD_GB = 8.5, 76.0
+# zamba2-2.7b at 18 of 54 layers (3 shared-attention sites)
+# for its kernel loss, decode and train step, to keep the script within
+# its time with [fsdp-sp] added
+TSSM_ZAMBA_LAYERS = 18
 # one zamba2 layer's recompute under remat: what autograd saves for a
 # layer's backward with remat off, tools_torch/saved_activations.py at 6
 # of zamba2's layers on the host (2.792 MB a token at 256 tokens, 2.829
@@ -2697,10 +2754,13 @@ TSSM_STEP_COPIES, TSSM_CARD_GB = 8.5, 76.0
 ZAMBA_LAYER_SAVED = 3.05e6 * 2048 / 6
 # the flash kernel at the ranks' local shapes: zamba2's 16 attention heads
 # (h = 80) and seamless's 8 (h = 64) in the encoder (non-causal, 1024
-# frames) and decoder (512); [ssm] holds ssd_scan at theirs (SSD_FULL)
+# frames) and decoder (512); [ssm] holds ssd_scan at theirs (SSD_FULL);
+# and tinyllama-1.1b's 16 query and 2 KV heads (h = 64) on one row of a
+# rank of [fsdp-sp]'s (2, 2) mesh
 FLASH_TENSOR = [(1, 16, 16, 2048, 2048, 80, True, "float32"),
                 (1, 8, 8, 1024, 1024, 64, False, "float32"),
-                (1, 8, 8, 512, 512, 64, True, "float32")]
+                (1, 8, 8, 512, 512, 64, True, "float32"),
+                (1, 16, 2, 2048, 2048, 64, True, "float32")]
 
 
 def _local_params(cfg) -> int:
@@ -2731,10 +2791,19 @@ def zamba_train_depth():
         acts = n * TENSOR_SEQ * c.d_model * 4 + ZAMBA_LAYER_SAVED
         return (state + acts) / 1e9
 
-    best = max(n for n in range(cfg.attn_every, cfg.n_layers + 1,
+    best = max(n for n in range(cfg.attn_every, TSSM_ZAMBA_LAYERS + 1,
                                 cfg.attn_every)
                if 2 * gb(n) <= TSSM_CARD_GB)
     return best, gb(best), gb(cfg.n_layers)
+
+
+def _tssm_cfg(arch: str):
+    """``[tensor-ssm]``'s config of ``arch``: zamba2 at
+    ``TSSM_ZAMBA_LAYERS`` layers, the others as published."""
+    from repro_torch.configs import get
+    cfg = get(arch)
+    return (cfg.replace(n_layers=TSSM_ZAMBA_LAYERS) if arch == TSSM[2]
+            else cfg)
 
 
 def tssm_launches(cfg, loss: bool) -> dict:
@@ -2796,11 +2865,13 @@ def _step1_errors(state, params, shard, lr: float) -> dict:
                for a, b in zip(leaves(tree), shard[k])]
         err[k] = max(rel)
         err[k + "_leaf"] = rel.index(err[k])
-    err["nu"] = max(
+        err[k + "_leaves"] = rel
+    err["nu_leaves"] = [
         float((torch.sqrt(v / (1 - ADAM_B2))
                - m.abs() / (1 - ADAM_B1)).abs().max())
         / max(float(m.abs().max()) / (1 - ADAM_B1), 1e-30)
-        for v, m in zip(leaves(state.opt.nu), shard["mu"]))
+        for v, m in zip(leaves(state.opt.nu), shard["mu"])]
+    err["nu"] = max(err["nu_leaves"])
     excess = 0.0
     for p, p0, m, v in zip(leaves(state.params), leaves(params),
                            leaves(state.opt.mu), leaves(state.opt.nu)):
@@ -2847,7 +2918,8 @@ def _tssm_reference(zamba_depth: int):
     mamba2's and seamless's three steps (losses; each rank's shards of
     the step-1 parameters and first moments, in buffers allocated first),
     kernel losses and greedy tokens; zamba2's kernel and plain losses and
-    greedy tokens at full depth, and its plain loss at ``zamba_depth``."""
+    greedy tokens at ``TSSM_ZAMBA_LAYERS``, and its plain loss at
+    ``zamba_depth``."""
     import torch
     from repro_torch.configs import get
     from repro_torch.configs.base import RunConfig
@@ -2881,8 +2953,8 @@ def _tssm_reference(zamba_depth: int):
         del params
         gc.collect()
         torch.cuda.empty_cache()
-    cfg = get(TSSM[2])
-    for depth in (cfg.n_layers, zamba_depth):
+    cfg = _tssm_cfg(TSSM[2])
+    for depth in sorted({cfg.n_layers, zamba_depth}):
         c = cfg.replace(n_layers=depth)
         model = build_model(c, device="cuda")
         params = model.init(model.generator(0))
@@ -2909,7 +2981,8 @@ def _tssm_rank(rank: int, init: str, ref: dict, shard: dict, ckpt: str,
     (the step-1 shards against ``shard``, a fenced fourth step timing the
     all-reduces), kernel losses and greedy tokens, mamba2's ``Trainer``
     across a checkpoint in ``ckpt``, then zamba2's kernel loss and greedy
-    tokens at full depth and one train step at ``zamba_depth``; each
+    tokens at ``TSSM_ZAMBA_LAYERS`` and one train step at ``zamba_depth``;
+    each
     result checked by the caller, the dict put on ``q``."""
     import traceback
     import torch
@@ -3013,8 +3086,8 @@ def _tssm_rank(rank: int, init: str, ref: dict, shard: dict, ckpt: str,
                           "wall_s": time.perf_counter() - t0}
         gc.collect()
         torch.cuda.empty_cache()
-        # zamba2: the kernel loss and greedy tokens at full depth
-        cfg = get(TSSM[2])
+        # zamba2: the kernel loss and greedy tokens
+        cfg = _tssm_cfg(TSSM[2])
         res = out[TSSM[2]] = {}
         torch.cuda.reset_peak_memory_stats()
         model = build_model(cfg, device="cuda")
@@ -3104,7 +3177,7 @@ def phase_tensor_ssm(card: str) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ref, shards = _tssm_reference(depth)
-    full = ref[TSSM[2], get(TSSM[2]).n_layers]
+    full = ref[TSSM[2], TSSM_ZAMBA_LAYERS]
     print(f"  one-process reference {time.perf_counter() - t0:.1f} s "
           f"[{card}]: "
           + "; ".join(f"{a} losses {[round(x, 6) for x in ref[a]['losses']]}"
@@ -3160,13 +3233,13 @@ def phase_tensor_ssm(card: str) -> dict:
         shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
     launches = {"ssd_scan": 0, "flash_attention": 0}
-    want_loss = {a: tssm_launches(get(a), True) for a in TSSM}
-    want_greedy = {a: tssm_launches(get(a), False) for a in TSSM}
+    want_loss = {a: tssm_launches(_tssm_cfg(a), True) for a in TSSM}
+    want_greedy = {a: tssm_launches(_tssm_cfg(a), False) for a in TSSM}
     for o in outs:
         r = o["rank"]
         for arch in TSSM:
             res, want = o[arch], ref.get(arch) or ref[
-                arch, get(arch).n_layers]
+                arch, _tssm_cfg(arch).n_layers]
             for k in ("loss_launches", "greedy_launches"):
                 exp = (want_loss if k == "loss_launches" else
                        want_greedy)[arch]
@@ -3243,7 +3316,8 @@ def phase_tensor_ssm(card: str) -> dict:
               f"{res['step_loss']} vs one process {want_step}")
         model_ms = sum(v for k, v in res["step_comm_ms"].items()
                        if k == "all_reduce [0, 1]")
-        print(f"  rank {r}: {TSSM[2]} full depth: kernel loss "
+        print(f"  rank {r}: {TSSM[2]} at {TSSM_ZAMBA_LAYERS} layers: "
+              f"kernel loss "
               f"{res['kernel_loss']:.6f} (plain {res['plain_loss']:.6f}), "
               f"launches {res['loss_launches']} a loss, "
               f"{res['greedy_launches']} a prefill, {TENSOR_NEW} greedy "
@@ -3262,6 +3336,617 @@ def phase_tensor_ssm(card: str) -> dict:
           f" (rank 0 {[round(x, 6) for x in last]}, max |d| {d:.2e})")
     print(f"  ranks' wall {wall:.1f} s (process start and every model "
           f"included); launches {launches}  [{TENSOR_NOTE}; {card}]")
+    return launches
+
+
+# -- phase 17: FSDP storage, sequence parallelism and the split cache ----
+
+# four ranks on a ("data", "model") (2, 2) mesh (spawned, Gloo, time-sharing
+# the card as in [tensor]): tinyllama-1.1b at full width and 2 of its 22
+# layers (four ranks and this process share the card, and Gloo moves every
+# gather and scatter through the host: each layer a step costs several
+# round trips of 16 MB activations and 90 MB weight shards; the script
+# must end within its time on a slow host), and
+# mamba2-130m at full size; then the GQA decode fallback on (1, 8) and
+# long-context decode on (2, 1)
+FSDP_NOTE = "ranks time-share one H100 over Gloo through the host"
+FSDP_ARCH, FSDP_LAYERS, FSDP_SSM = "tinyllama-1.1b", 2, "mamba2-130m"
+FSDP_SEQ, FSDP_ODD, FSDP_BATCH = 2048, 2047, 2   # inputs; one row a data rank
+FSDP_STEPS, FSDP_TIMEOUT_S = 3, 900
+# option sets: (gather_weights, res_seq on model)
+FSDP_RUNS = {"baseline": (False, False), "gather_weights": (True, False),
+             "seq_shard": (False, True), "both": (True, True)}
+FSDP_SSM_RUNS = ("baseline", "both")
+FALLBACK_RANKS, FALLBACK_PROMPT = 8, 128    # max_len 144: 18 positions a rank
+FALLBACK_LAYERS = 2        # of 22: eight ranks' decode step is ~6
+#                            collectives a layer through the host
+LONG_ARCH, LONG_LAYERS = "zamba2-2.7b", 6   # one shared-attention site
+LONG_MAX = 524288                            # long_500k's cache
+LONG_PROMPT = SSD_LONG[1]  # 640 positions past the first rank's half; the
+#                            prefill's attention chunks are 128 queries
+#                            (4.3 GB of f32 scores a chunk); [ssm] holds
+#                            ssd_scan at this prefill's shape (SSD_LONG)
+
+
+def _fsdp_batch(cfg, i: int, seq: int, device, shard=(1, 0)):
+    """Step ``i``'s global batch of ``FSDP_BATCH`` rows at ``seq`` inputs,
+    or batch rank ``shard[1]``'s of ``shard[0]``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_dataset
+    from repro_torch.training.trainer import to_device
+    data = make_dataset(cfg, ShapeConfig("fsdp", seq, FSDP_BATCH, "train"))
+    return to_device(data.shard(*shard).batch(i), device)
+
+
+def _fsdp_cfgs():
+    from repro_torch.configs import get
+    return {FSDP_ARCH: get(FSDP_ARCH).replace(n_layers=FSDP_LAYERS),
+            FSDP_SSM: get(FSDP_SSM)}
+
+
+def _fsdp_reference():
+    """This process's runs that the (2, 2) ranks are held against: each
+    model's three steps on the global batch (losses; the whole step-1
+    parameters and first moments, in one buffer a model that the ranks
+    read through CUDA IPC), and tinyllama's step at the odd length.  And
+    the noise floor of the first moments: the first step again as two
+    microbatches of one row, the sum of two halves that a data-parallel
+    step takes too; its max |d| / max |ref| a leaf against the one-batch
+    step is what splitting the batch alone does to an f32 sum."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim.schedule import constant
+    from repro_torch.optim.tree import leaves
+    from repro_torch.training import make_train_step
+    ref, whole = {}, {}
+    for arch, cfg in _fsdp_cfgs().items():
+        model = build_model(cfg, device="cuda")
+        n = model.param_count()
+        flat = torch.empty(2 * n, dtype=torch.float32, device="cuda")
+        params = model.init(model.generator(0))
+        step = make_train_step(model, RunConfig(), constant(TENSOR_LR))
+        state, losses = _train_state(params, "cuda"), []
+        for i in range(FSDP_STEPS):
+            state, m = step(state, _fsdp_batch(cfg, i, FSDP_SEQ, "cuda"))
+            losses.append(float(m["loss"]))
+            if i == 0:
+                at, views = 0, {}
+                for k, tree in (("params", state.params),
+                                ("mu", state.opt.mu)):
+                    views[k] = []
+                    for t in leaves(tree):
+                        v = flat[at:at + t.numel()].view(t.shape)
+                        v.copy_(t)
+                        views[k].append(v)
+                        at += t.numel()
+                whole[arch] = views
+        halves = make_train_step(model, RunConfig(microbatch=2),
+                                 constant(TENSOR_LR))(
+            _train_state(params, "cuda"),
+            _fsdp_batch(cfg, 0, FSDP_SEQ, "cuda"))[0]
+        noise = [float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                 for a, b in zip(leaves(halves.opt.mu), whole[arch]["mu"])]
+        del halves
+        ref[arch] = {"losses": losses, "nparams": n, "noise": noise}
+        if arch == FSDP_ARCH:
+            ref[arch]["odd_loss"] = float(step(
+                _train_state(params, "cuda"),
+                _fsdp_batch(cfg, 0, FSDP_ODD, "cuda"))[1]["loss"])
+        del state, params, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ref, whole
+
+
+def _fsdp_rank(rank: int, init: str, whole: dict, q) -> None:
+    """One rank of ``[fsdp-sp]``'s (2, 2) mesh: each model under each
+    option set (``FSDP_RUNS``), three steps (one for the baseline) with
+    the step-1 shards against its slices of ``whole`` (this process's
+    step-1 state), a fenced fourth step timing every all-reduce by group,
+    its tensors' bytes, its peak memory and the loss through the kernels;
+    then tinyllama's ``seq_shard`` step at the odd length.  The result
+    dict goes to ``q``."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    out = {"rank": rank, "runs": {}}
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.configs.base import RunConfig
+        from repro_torch.distributed import axes as ax
+        from repro_torch.kernels.flash_attention import kernel as flash
+        from repro_torch.kernels.ssd_scan import kernel as ssd
+        from repro_torch.launch.mesh import init_group, make_host_mesh
+        from repro_torch.models import build_model
+        from repro_torch.models.params import _walk
+        from repro_torch.optim.schedule import constant
+        from repro_torch.optim.tree import leaves
+        from repro_torch.training import make_train_step
+
+        out["backend"] = init_group(rank, 4, "file://" + init,
+                                    device="cuda", timeout_s=600,
+                                    backend="gloo")
+        mesh = make_host_mesh(2, device="cuda")
+        shard = ax.batch_coord(mesh)
+        for arch, cfg in _fsdp_cfgs().items():
+            model = build_model(cfg, device="cuda")
+            model_k = build_model(cfg.replace(use_kernels=True),
+                                  device="cuda")
+            specs = [sp for _, sp in _walk(model.specs)]
+            runs = FSDP_RUNS if arch == FSDP_ARCH else {
+                k: FSDP_RUNS[k] for k in FSDP_SSM_RUNS}
+            for name, (gw, sp) in runs.items():
+                rules = dict(ax.DEFAULT_RULES, res_seq="model") if sp \
+                    else None
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                r = {}
+                with ax.use_rules(mesh, rules, {"gather_weights": gw}):
+                    r["sp"] = ax.seq_parallel(FSDP_SEQ)
+                    r["split"] = [ax.data_dim(s.axes, s.shape) is not None
+                                  for s in specs]
+                    params = model.init(model.generator(0))
+                    mine = {k: [ax.local_shard(t, s.axes)
+                                for t, s in zip(whole[arch][k], specs)]
+                            for k in ("params", "mu")}
+                    step = make_train_step(model, RunConfig(),
+                                           constant(TENSOR_LR))
+                    state = _train_state(params, "cuda")
+                    losses, times = [], []
+                    n_steps = 1 if name == "baseline" else FSDP_STEPS
+                    for i in range(n_steps):
+                        batch = _fsdp_batch(cfg, i, FSDP_SEQ, "cuda", shard)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        state, m = step(state, batch)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                        losses.append(float(m["loss"]))
+                        if i == 0:
+                            r["step1"] = _step1_errors(state, params, mine,
+                                                       TENSOR_LR)
+                    del mine
+                    r["bytes"] = {k: [t.nbytes for t in leaves(tree)]
+                                  for k, tree in (
+                                      ("params", state.params),
+                                      ("mu", state.opt.mu),
+                                      ("nu", state.opt.nu))}
+                    with _FencedAllReduce() as fence:
+                        step(state, batch)
+                    r["comm_ms"] = fence.ms
+                    del state, m
+                    gc.collect()
+                    batch0 = _fsdp_batch(cfg, 0, FSDP_SEQ, "cuda", shard)
+                    flash.flash_attention.launches = 0
+                    ssd.ssd_scan.launches = 0
+                    with torch.no_grad():
+                        r["kernel_loss"] = float(model_k.train_loss(
+                            params, batch0)[0])
+                        n_k = (flash.flash_attention.launches,
+                               ssd.ssd_scan.launches)
+                        # the rank's own batch: the plain loss beside it
+                        r["plain_loss"] = float(model.train_loss(
+                            params, batch0)[0])
+                    r["launches"] = {"flash_attention": n_k[0],
+                                     "ssd_scan": n_k[1]}
+                    r["losses"], r["step_s"] = losses, times
+                    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                    del params
+                out["runs"][arch, name] = r
+            del model, model_k
+        cfg = _fsdp_cfgs()[FSDP_ARCH]
+        model = build_model(cfg, device="cuda")
+        with ax.use_rules(mesh, dict(ax.DEFAULT_RULES, res_seq="model")):
+            out["odd_sp"] = ax.seq_parallel(FSDP_ODD)
+            params = model.init(model.generator(0))
+            step = make_train_step(model, RunConfig(), constant(TENSOR_LR))
+            out["odd_loss"] = float(step(
+                _train_state(params, "cuda"),
+                _fsdp_batch(cfg, 0, FSDP_ODD, "cuda", shard))[1]["loss"])
+    except Exception:
+        out["error"] = traceback.format_exc()[-4000:]
+    finally:
+        q.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _fallback_rank(rank: int, init: str, q) -> None:
+    """One rank of the GQA decode fallback on (1, 8): tinyllama-1.1b at
+    full width and ``FALLBACK_LAYERS`` layers under ``rules_for_shape``'s
+    rules (its 4 KV heads
+    do not divide the axis: the cache's positions on ``model``), a
+    128-token prompt prefilled and 16 greedy tokens; the cache gathered on
+    positions."""
+    import traceback
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    out = {"rank": rank}
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from repro_torch.configs import get
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.distributed import axes as ax
+        from repro_torch.launch.mesh import init_group, make_host_mesh
+        from repro_torch.launch.shardings import rules_for_shape
+        from repro_torch.models import build_model
+        init_group(rank, FALLBACK_RANKS, "file://" + init, device="cuda",
+                   timeout_s=600, backend="gloo")
+        mesh = make_host_mesh(FALLBACK_RANKS, device="cuda")
+        cfg = get(FSDP_ARCH).replace(n_layers=FALLBACK_LAYERS)
+        max_len = FALLBACK_PROMPT + TENSOR_NEW
+        rules = rules_for_shape(ShapeConfig("d", max_len, 1, "decode"), cfg,
+                                mesh)
+        out["rules"] = (rules["kv_seq"], rules["kv_heads"])
+        model = build_model(cfg, device="cuda")
+        prompt = torch.from_numpy(np.random.default_rng(11).integers(
+            0, cfg.vocab_size, size=(1, FALLBACK_PROMPT))).to("cuda")
+        with ax.use_rules(mesh, rules), torch.no_grad():
+            params = model.init(model.generator(0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, {"tokens": prompt}, max_len)
+            toks, steps = [], []
+            for _ in range(TENSOR_NEW):
+                tok = torch.argmax(logits[:, -1], -1)[:, None]
+                toks.append(tok)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                logits, cache = model.decode_step(params, cache, tok)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t1)
+            out["wall_s"] = time.perf_counter() - t0
+            out["decode_s"] = steps
+            out["tokens"] = torch.cat(toks, 1).cpu().tolist()
+            out["local"] = tuple(cache.kv.k.shape)
+            group = ax.group_of(("model",))[0]
+            # numpy: a CPU tensor would pass the queue as a file
+            # descriptor that dies with this process
+            out["k"] = ax._gathered(cache.kv.k, 2, group).cpu().numpy()
+            out["v"] = ax._gathered(cache.kv.v, 2, group).cpu().numpy()
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    except Exception:
+        out["error"] = traceback.format_exc()[-4000:]
+    finally:
+        q.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _long_rank(rank: int, init: str, cache: tuple, first, q) -> None:
+    """One rank of long-context decode on a ("data", "model") (2, 1)
+    mesh: zamba2-2.7b at full width and ``LONG_LAYERS`` layers under
+    ``long_500k``'s rules (the cache's positions on the batch axes), its
+    half of this process's prefilled cache (``cache``: conv and SSM
+    states, K, V and lengths, read through CUDA IPC and copied), 16
+    greedy tokens from ``first``."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    out = {"rank": rank}
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from repro_torch.configs import SHAPES, get
+        from repro_torch.distributed import axes as ax
+        from repro_torch.launch.mesh import init_group, make_host_mesh
+        from repro_torch.launch.shardings import rules_for_shape
+        from repro_torch.models import build_model
+        from repro_torch.models.hybrid import HybridCache
+        from repro_torch.models.mamba2 import SSMState
+        init_group(rank, 2, "file://" + init, device="cuda", timeout_s=600,
+                   backend="gloo")
+        mesh = make_host_mesh(1, device="cuda")
+        cfg = get(LONG_ARCH).replace(n_layers=LONG_LAYERS)
+        rules = rules_for_shape(SHAPES["long_500k"], cfg, mesh)
+        out["rules"] = rules["kv_seq"]
+        model = build_model(cfg, device="cuda")
+        conv, h, k, v, length = cache
+        half = LONG_MAX // 2
+        with ax.use_rules(mesh, rules), torch.no_grad():
+            params = model.init(model.generator(0))
+            mine = HybridCache(SSMState(conv.clone(), h.clone()),
+                               k[:, :, rank * half:(rank + 1) * half].clone(),
+                               v[:, :, rank * half:(rank + 1) * half].clone(),
+                               length.clone())
+            del conv, h, k, v, length, cache
+            q.put({"rank": rank, "copied": True})
+            out["local"] = tuple(mine.k.shape)
+            tok, toks, steps = first.clone(), [], []
+            for _ in range(TENSOR_NEW):
+                toks.append(tok)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, mine = model.decode_step(params, mine, tok)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t0)
+                tok = torch.argmax(logits[:, -1], -1)[:, None]
+            out["tokens"] = torch.cat(toks, 1).cpu().tolist()
+            out["decode_s"] = steps
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    except Exception:
+        out["error"] = traceback.format_exc()[-4000:]
+    finally:
+        q.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn(target, n: int, args, on_message=None) -> list:
+    """Run ``target(rank, init, *args, q)`` in ``n`` spawned processes;
+    their result dicts by rank (``on_message`` sees the others)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init = tempfile.mktemp(prefix="chip_smoke_fsdp_")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    procs = [ctx.Process(target=target, args=(r, init, *args, q))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    outs, deadline = [], time.perf_counter() + FSDP_TIMEOUT_S
+    try:
+        while len(outs) < n:
+            try:
+                o = q.get(timeout=10)
+            except queue.Empty:        # a rank that died sends nothing
+                codes = [p.exitcode for p in procs]
+                check(all(c in (None, 0) for c in codes)
+                      and time.perf_counter() < deadline,
+                      f"fsdp-sp: {target.__name__}: rank exit codes {codes}"
+                      f" after {len(outs)} results")
+                continue
+            if "copied" in o:
+                if on_message is not None:
+                    on_message(o)
+                continue
+            outs.append(o)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if os.path.exists(init):
+            os.remove(init)
+        os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+    outs.sort(key=lambda o: o["rank"])
+    for o in outs:
+        check("error" not in o, f"fsdp-sp: rank {o['rank']} of "
+              f"{target.__name__} failed:\n{o.get('error')}")
+    return outs
+
+
+def _long_reference():
+    """zamba2-2.7b at ``LONG_LAYERS`` layers, one process: a
+    ``LONG_PROMPT``-token prompt prefilled (``ssd_scan`` on the SSD
+    layers) into a cache of ``LONG_MAX`` positions, then 16 greedy
+    tokens.  Returns (the prefill's cache tensors, the first token, the
+    tokens, the prefill's seconds, the ``ssd_scan`` launches).  The
+    decode writes its tokens' K/V in place, past the prefill's length,
+    where the ranks' decode writes them again before it reads them."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.models import build_model
+    cfg = get(LONG_ARCH).replace(n_layers=LONG_LAYERS, use_kernels=True)
+    model = build_model(cfg, device="cuda")
+    params = model.init(model.generator(0))
+    prompt = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, size=(1, LONG_PROMPT))).to("cuda")
+    ssd.ssd_scan.launches = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompt}, LONG_MAX)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = ssd.ssd_scan.launches
+        first = torch.argmax(logits[:, -1], -1)[:, None]
+        tensors = (cache.ssm.conv, cache.ssm.h, cache.k, cache.v,
+                   cache.length)
+        tok, toks, run = first, [], cache
+        for _ in range(TENSOR_NEW):
+            toks.append(tok)
+            logits, run = model.decode_step(params, run, tok)
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+    del params, logits, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (tensors, first, torch.cat(toks, 1).cpu().tolist(), prefill_s,
+            launches)
+
+
+def phase_fsdp_sp(card: str) -> dict:
+    """[fsdp-sp]: FSDP storage and sequence parallelism on a (2, 2) mesh,
+    the GQA decode fallback on (1, 8) and long-context decode on (2, 1),
+    each against the same work in this process.  Returns the ranks' and
+    this process's kernel launches."""
+    import torch
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref, whole = _fsdp_reference()
+    print(f"  one-process reference ({FSDP_ARCH} {FSDP_LAYERS} layers "
+          f"{ref[FSDP_ARCH]['nparams']} params, {FSDP_SSM} "
+          f"{ref[FSDP_SSM]['nparams']} params; {FSDP_STEPS} steps at "
+          f"tokens ({FSDP_BATCH}, {FSDP_SEQ + 1})) "
+          f"{time.perf_counter() - t0:.1f} s: losses "
+          + "; ".join(f"{a} {[round(x, 6) for x in r['losses']]}"
+                      for a, r in ref.items())
+          + f"; {FSDP_ARCH} at ({FSDP_BATCH}, {FSDP_ODD + 1}) "
+          f"{ref[FSDP_ARCH]['odd_loss']:.6f}")
+    t0 = time.perf_counter()
+    outs = _spawn(_fsdp_rank, 4, (whole,))
+    del whole
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    for o in outs:
+        r = o["rank"]
+        for (arch, name), run in o["runs"].items():
+            want = ref[arch]["losses"][:len(run["losses"])]
+            rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], want)]
+            check(max(rel) <= TENSOR_TOL,
+                  f"fsdp-sp: rank {r} {arch} {name} losses "
+                  f"{run['losses']} vs {want}")
+            s1 = run["step1"]
+            # a leaf's first and second moments within 1e-4 of the
+            # one-process ones (max |d| / max |ref|), or, where that is
+            # larger, within twice the leaf's noise of an f32 sum split in
+            # two (the one-process microbatch step): mamba2's tied,
+            # vocab-split embedding sits at ~1e-4
+            noise = ref[arch]["noise"]
+            over = [i for i, (e, f) in enumerate(zip(s1["mu_leaves"],
+                                                     s1["nu_leaves"]))
+                    if max(e, f) > max(TENSOR_TOL, 2 * noise[i])]
+            check(not over and s1["param_excess"] <= 0.0,
+                  f"fsdp-sp: rank {r} {arch} {name} step-1 shards "
+                  f"{ {k: v for k, v in s1.items() if 'leaves' not in k} }, "
+                  "leaves over (mu, nu, noise) "
+                  f"{[(i, s1['mu_leaves'][i], s1['nu_leaves'][i], noise[i])
+                      for i in over]}")
+            gw, sp = FSDP_RUNS[name]
+            check(run["sp"] == sp, f"fsdp-sp: rank {r} {arch} {name} "
+                  f"sequence parallel {run['sp']}")
+            check(abs(run["kernel_loss"] - run["plain_loss"]) < 1e-3,
+                  f"fsdp-sp: rank {r} {arch} {name} kernel loss "
+                  f"{run['kernel_loss']} vs plain {run['plain_loss']}")
+            n = run["launches"]
+            want_n = ({"flash_attention": FSDP_LAYERS, "ssd_scan": 0}
+                      if arch == FSDP_ARCH else
+                      {"flash_attention": 0,
+                       "ssd_scan": _fsdp_cfgs()[arch].n_layers})
+            check(n == want_n, f"fsdp-sp: rank {r} {arch} {name} launches "
+                  f"{n}, expected {want_n}")
+            for k in launches:
+                launches[k] += n[k]
+            base = o["runs"][arch, "baseline"]["bytes"]
+            # FSDP storage: a leaf that spec_for splits on data holds half
+            # of its baseline (2, 2) shard's bytes, parameters and moments
+            # alike; every other leaf as many
+            for k, got in run["bytes"].items():
+                exp = [b // 2 if gw and s else b
+                       for b, s in zip(base[k], run["split"])]
+                check(got == exp, f"fsdp-sp: rank {r} {arch} {name} {k} "
+                      f"bytes {sum(got)} vs {sum(exp)}")
+            comm = ", ".join(f"{k}: {v:.3f} ms" for k, v in
+                             sorted(run["comm_ms"].items()))
+            total = {k: sum(v) for k, v in run["bytes"].items()}
+            btot = {k: sum(v) for k, v in base.items()}
+            print(f"  rank {r} ({o['backend']}) {arch} {name}: median step "
+                  f"{1e3 * statistics.median(run['step_s']):.3f} ms "
+                  f"({[round(1e3 * x, 3) for x in run['step_s']]}), losses "
+                  f"{[round(x, 6) for x in run['losses']]} (max rel "
+                  f"{max(rel):.2e}); step 1 mu / nu {s1['mu']:.2e} / "
+                  f"{s1['nu']:.2e} (leaf {s1['mu_leaf']}, its noise floor "
+                  f"{noise[s1['mu_leaf']]:.2e}), param excess "
+                  f"{s1['param_excess']:.2e}; "
+                  f"kernel loss {run['kernel_loss']:.6f} (plain "
+                  f"{run['plain_loss']:.6f} on the rank's rows; {n}); bytes "
+                  f"params {total['params']} mu {total['mu']} nu "
+                  f"{total['nu']} (baseline {btot['params']} / {btot['mu']}"
+                  f" / {btot['nu']}; {sum(run['split'])} leaves split on "
+                  f"data); peak {run['peak_gb']:.2f} GB  [{FSDP_NOTE}; "
+                  f"{card}]")
+            print(f"  rank {r} {arch} {name}: fenced step's all-reduces "
+                  f"(Gloo's CUDA gathers and scatters are all-reduces of "
+                  f"padded shards) {comm}  [{FSDP_NOTE}; {card}]")
+        check(not o["odd_sp"] and abs(o["odd_loss"]
+                                      - ref[FSDP_ARCH]["odd_loss"])
+              <= TENSOR_TOL * abs(ref[FSDP_ARCH]["odd_loss"]),
+              f"fsdp-sp: rank {r} odd-length loss {o['odd_loss']} vs "
+              f"{ref[FSDP_ARCH]['odd_loss']} (sequence parallel "
+              f"{o['odd_sp']})")
+        print(f"  rank {r}: seq_shard at {FSDP_ODD} inputs (not split: "
+              f"the residual stream stays whole) loss {o['odd_loss']:.6f}"
+              f" (one process {ref[FSDP_ARCH]['odd_loss']:.6f})")
+    print(f"  (2, 2) ranks' wall {wall:.1f} s")
+    # the GQA decode fallback on (1, 8)
+    from repro_torch.configs import get
+    from repro_torch.models import build_model
+    import numpy as np
+    t0 = time.perf_counter()
+    cfg = get(FSDP_ARCH).replace(n_layers=FALLBACK_LAYERS)
+    model = build_model(cfg, device="cuda")
+    params = model.init(model.generator(0))
+    prompt = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, size=(1, FALLBACK_PROMPT))).to("cuda")
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": prompt},
+                                      FALLBACK_PROMPT + TENSOR_NEW)
+        toks = []
+        for _ in range(TENSOR_NEW):
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            toks.append(tok)
+            logits, cache = model.decode_step(params, cache, tok)
+    want_tokens = torch.cat(toks, 1).cpu().tolist()
+    want_k, want_v = cache.kv.k.cpu().numpy(), cache.kv.v.cpu().numpy()
+    del params, cache, logits, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = _spawn(_fallback_rank, FALLBACK_RANKS, ())
+    for o in outs:
+        r = o["rank"]
+        check(o["rules"] == ("model", None), f"fsdp-sp: fallback rules "
+              f"{o['rules']}")
+        check(o["local"][2] == (FALLBACK_PROMPT + TENSOR_NEW)
+              // FALLBACK_RANKS and o["local"][3] == cfg.n_kv_heads,
+              f"fsdp-sp: fallback rank {r} cache {o['local']}")
+        check(o["tokens"] == want_tokens, f"fsdp-sp: fallback rank {r} "
+              f"tokens {o['tokens']} vs {want_tokens}")
+        err = max(float(np.abs(o[k] - w).max()) / float(np.abs(w).max())
+                  for k, w in (("k", want_k), ("v", want_v)))
+        check(err <= TENSOR_TOL, f"fsdp-sp: fallback rank {r} cache "
+              f"max|d|/max|ref| {err:.2e}")
+        if r == 0:
+            print(f"  (1, {FALLBACK_RANKS}) GQA fallback, {FSDP_ARCH} at "
+                  f"full width and {FALLBACK_LAYERS} layers: cache "
+                  f"{o['local']} a rank (every KV head, 1/{FALLBACK_RANKS} "
+                  f"of {FALLBACK_PROMPT + TENSOR_NEW} positions); "
+                  f"{TENSOR_NEW} greedy tokens equal; gathered cache "
+                  f"max|d|/max|ref| {err:.2e}; median decode step "
+                  f"{1e3 * statistics.median(o['decode_s']):.3f} ms; peak "
+                  f"{o['peak_gb']:.2f} GB a rank  [{FSDP_NOTE}; {card}]")
+    print(f"  (1, {FALLBACK_RANKS}) fallback wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    # long context on (2, 1)
+    t0 = time.perf_counter()
+    tensors, first, want, prefill_s, n = _long_reference()
+    launches["ssd_scan"] += n
+    check(n == LONG_LAYERS, f"fsdp-sp: long prefill ssd_scan launches {n}")
+    print(f"  {LONG_ARCH} {LONG_LAYERS} layers: {LONG_PROMPT}-token prefill "
+          f"into a {LONG_MAX}-position cache {prefill_s:.1f} s in one "
+          f"process ({n} ssd_scan launches)  [{card}]")
+    outs = _spawn(_long_rank, 2, (tensors, first))
+    del tensors
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    for o in outs:
+        r = o["rank"]
+        check(o["rules"] == ("pod", "data") and o["local"][2]
+              == LONG_MAX // 2, f"fsdp-sp: long rank {r} rules "
+              f"{o['rules']} cache {o['local']}")
+        check(o["tokens"] == want, f"fsdp-sp: long rank {r} tokens "
+              f"{o['tokens']} vs {want}")
+        print(f"  (2, 1) long context rank {r}: cache {o['local']} (half of "
+              f"{LONG_MAX} positions, the prompt past {LONG_MAX // 2}); "
+              f"{TENSOR_NEW} greedy tokens equal; median decode step "
+              f"{1e3 * statistics.median(o['decode_s']):.3f} ms; peak "
+              f"{o['peak_gb']:.2f} GB  [{FSDP_NOTE}; {card}]")
+    print(f"  (2, 1) long-context wall {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3443,7 +4128,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         t_scale = time.perf_counter()
         print(f"[scaling] scaling_profile at scales {SCALES}, {SCALE_ARCH} "
-              f"at full width and depth, global batch {SCALE_SHAPE[1]} x "
+              f"at full width and {SCALE_LAYERS} of its layers, global "
+              f"batch {SCALE_SHAPE[1]} x "
               f"{SCALE_SHAPE[0] + 1} tokens, {SCALE_STEPS} steps; {card}")
         ab_n, ns_n = phase_scaling(card)
         launches["ab_fused"] += ab_n
@@ -3471,6 +4157,18 @@ def main() -> int:
         print(f"[tensor-ssm] phase wall time "
               f"{time.perf_counter() - t_tssm:.1f} s  [{TENSOR_NOTE}; "
               f"{card}]")
+        torch.cuda.empty_cache()
+        t_fsdp = time.perf_counter()
+        print(f"[fsdp-sp] FSDP storage and sequence parallelism on a (2, 2) "
+              f"mesh: {FSDP_ARCH} at full width, {FSDP_LAYERS} of its "
+              f"layers, {FSDP_SSM} at full size; the GQA decode fallback on "
+              f"(1, {FALLBACK_RANKS}) at {FALLBACK_LAYERS} layers; "
+              f"{LONG_ARCH} long-context decode on "
+              f"(2, 1); {FSDP_NOTE}; {card}")
+        for n, c in phase_fsdp_sp(card).items():
+            launches[n] += c
+        print(f"[fsdp-sp] phase wall time "
+              f"{time.perf_counter() - t_fsdp:.1f} s  [{FSDP_NOTE}; {card}]")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

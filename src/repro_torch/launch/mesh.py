@@ -9,14 +9,16 @@ data-parallel step needs, so several ranks may time-share one card.  The
 H100 SXM data-sheet figures below are the port's roofline constants.
 ``fake_process_group`` gives one process the ranks of a larger world for
 tracing (collectives are recorded, nothing moves): the scenario recorder
-traces rank 0 of 8 that way.  ``make_production_mesh`` (the 16x16 and
-2x16x16 meshes) and ``mesh_chip_count`` arrive with their first reader,
-the dry run (ROADMAP Queue 1 item 10b).
+traces rank 0 of 8 that way, and the production-mesh sweep
+(``tools_torch/cells_sweep.py``) a rank of the reference's deployment
+meshes, ``make_production_mesh``: 16x16 ``("data", "model")`` and
+2x16x16 ``("pod", "data", "model")`` over 256 and 512 ranks.
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
+import math
 from typing import Iterator, Optional
 
 import torch
@@ -73,25 +75,56 @@ def fake_process_group(world: int, rank: int = 0) -> Iterator[None]:
         dist.destroy_process_group()
 
 
-def make_host_mesh(model_axis: int = 1, device: torch.device | str = "cuda"):
-    """``(world // model_axis, model_axis)`` mesh named ``("data",
-    "model")`` over the initialised process group."""
+def _mesh(shape, names, device: torch.device | str, who: str):
     from torch.distributed.device_mesh import init_device_mesh
     if not dist.is_initialized():
-        raise RuntimeError("make_host_mesh: no process group; call "
-                           "init_group (or init_process_group) first")
+        raise RuntimeError(f"{who}: no process group; call init_group "
+                           "(or init_process_group) first")
     n = dist.get_world_size()
-    if n % model_axis:
-        raise ValueError(f"world size {n} does not split into a model "
-                         f"axis of {model_axis}")
+    if n != math.prod(shape):
+        raise ValueError(f"{who}: world size {n} is not a {shape} mesh")
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("make_host_mesh: no CUDA device; pass "
-                               "device='cpu' to run on the host")
+            raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' "
+                               "to run on the host")
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
-    return init_device_mesh(dev.type, (n // model_axis, model_axis),
-                            mesh_dim_names=("data", "model"))
+    return init_device_mesh(dev.type, tuple(shape), mesh_dim_names=names)
+
+
+def make_host_mesh(model_axis: int = 1, device: torch.device | str = "cuda",
+                   pods: int = 1):
+    """``(world // model_axis, model_axis)`` mesh named ``("data",
+    "model")`` over the initialised process group; with ``pods`` above 1
+    ``(pods, world // (pods * model_axis), model_axis)`` named ``("pod",
+    "data", "model")``, whose batch is split over pod and data."""
+    n = dist.get_world_size() if dist.is_initialized() else 0
+    if n % (model_axis * pods):
+        raise ValueError(f"world size {n} does not split into {pods} pods "
+                         f"and a model axis of {model_axis}")
+    if pods > 1:
+        return _mesh((pods, n // (pods * model_axis), model_axis),
+                     ("pod", "data", "model"), device, "make_host_mesh")
+    return _mesh((n // model_axis, model_axis), ("data", "model"), device,
+                 "make_host_mesh")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: torch.device | str = "cuda"):
+    """The reference's deployment meshes over a process group of 256 or
+    512 ranks: ``(16, 16)`` named ``("data", "model")``, or with
+    ``multi_pod`` ``(2, 16, 16)`` named ``("pod", "data", "model")``.  On
+    one host they are traced, not run: build them under
+    :func:`fake_process_group` with ``device="cpu"``."""
+    if multi_pod:
+        return _mesh((2, 16, 16), ("pod", "data", "model"), device,
+                     "make_production_mesh")
+    return _mesh((16, 16), ("data", "model"), device, "make_production_mesh")
+
+
+def mesh_chip_count(mesh) -> int:
+    """The number of ranks (one a card) that ``mesh`` spans."""
+    return int(mesh.size())
 
 
 # NVIDIA H100 SXM data-sheet figures (per card, dense)

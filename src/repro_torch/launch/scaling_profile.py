@@ -79,6 +79,8 @@ def worker(args) -> None:
         n, rank = dist.get_world_size(), dist.get_rank()
         cfg = (get if args.full else get_smoke)(args.arch).replace(
             remat=False)
+        if args.layers:
+            cfg = cfg.replace(n_layers=args.layers)
         model = build_model(cfg, device=dev)
         mesh = make_host_mesh(device=dev)               # (n, 1) data-parallel
         step_fn = make_train_step(model, RunConfig(arch=args.arch),
@@ -135,7 +137,8 @@ def scale_path(out_dir: str, arch: str, n: int) -> str:
 
 def run_scale(n: int, *, arch: str, steps: int, batch: int, seq: int,
               sample_every: int, out_dir: str, device: str,
-              timeout_s: float, backend: str, full: bool = False) -> str:
+              timeout_s: float, backend: str, full: bool = False,
+              layers: int = 0) -> str:
     """Profile one scale: ``n`` worker processes, one process group on
     ``backend``.  Raises if a worker fails or outlives ``timeout_s``;
     returns rank 0's JSON path."""
@@ -160,7 +163,8 @@ def run_scale(n: int, *, arch: str, steps: int, batch: int, seq: int,
                    "--seq", str(seq), "--sample-every", str(sample_every),
                    "--device", device, "--timeout", str(timeout_s),
                    "--backend", backend, "--out", out] + \
-                (["--full"] if full else [])
+                (["--full"] if full else []) + \
+                (["--layers", str(layers)] if layers else [])
             with open(log, "w") as f:
                 procs.append((subprocess.Popen(cmd, env=env, stdout=f,
                                                stderr=subprocess.STDOUT),
@@ -244,6 +248,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--full", action="store_true",
                     help="the published config instead of the smoke one")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config to this many layers (0: keep)")
     ap.add_argument("--scales", default="1,2,4")
     ap.add_argument("--steps", type=int, default=12)
     ap.add_argument("--batch", type=int, default=8)
@@ -276,7 +282,8 @@ def main(argv=None) -> None:
         run_scale(n, arch=args.arch, steps=args.steps, batch=args.batch,
                   seq=args.seq, sample_every=args.sample_every,
                   out_dir=args.out_dir, device=args.device,
-                  timeout_s=args.timeout, backend=backend, full=args.full)
+                  timeout_s=args.timeout, backend=backend, full=args.full,
+                  layers=args.layers)
 
     from repro_torch.core import render_report
     _, series, _ = load_series(args.arch, scales, args.out_dir)

@@ -19,13 +19,18 @@ that this process does not run: trace under
 
 Partition specs are the reference's (``shardings_from_axes``,
 ``train_state_shardings``); the storage is the port's: weights are split
-on ``model`` only, whole across ``data`` (FSDP storage is ROADMAP Queue 1
-item 10b).
+on ``model``, and across ``data`` only under the ``gather_weights``
+option (FSDP storage, gathered at use).  ``seq_shard`` puts the residual
+stream's seq on ``model`` between blocks (sequence parallelism, where the
+sequence divides the axis).  Where the rules split the decode cache's
+positions (a GQA model whose KV heads do not divide the model axis;
+long-context serving over the batch axes) a rank's cache is its slice of
+them, as the model makes it (``cache_specs``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -162,15 +167,6 @@ class Cell:
             return psg_lib.trace(self.fn, *self.args)
 
 
-def _check_storage(rules: Mapping[str, Any], mesh) -> None:
-    sizes = ax.axis_sizes(mesh)
-    on = ax._mesh_axes_of(rules.get("kv_seq"), sizes)
-    if any(sizes[a] > 1 for a in on):
-        raise NotImplementedError(
-            f"the cache's seq dim on {on}: flash-decode partial softmax on "
-            "torch is ROADMAP Queue 1 item 10b")
-
-
 def build_cell(arch: str, shape_name: str, mesh, *,
                run: Optional[RunConfig] = None,
                cfg: Optional[ArchConfig] = None,
@@ -179,26 +175,25 @@ def build_cell(arch: str, shape_name: str, mesh, *,
     """Assemble the traceable step for one cell (raises if inapplicable).
 
     ``options``: ``moe_sort`` picks the sort dispatch for MoE training;
-    ``gather_weights`` and ``seq_shard`` need FSDP storage and sequence
-    parallelism (ROADMAP Queue 1 item 10b) and raise.  ``shape``
-    overrides the ``SHAPES[shape_name]`` lookup (smoke-scale cells)."""
+    ``gather_weights`` stores the parameters (and the optimizer's moments)
+    split on ``data`` too, gathered at use (ZeRO-3); ``seq_shard`` splits
+    the residual stream's seq on ``model`` between blocks (sequence
+    parallelism).  ``shape`` overrides the ``SHAPES[shape_name]`` lookup
+    (smoke-scale cells)."""
     shape = SHAPES[shape_name] if shape is None else shape
     cfg = cfg if cfg is not None else get_config(arch)
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         raise ValueError(f"{arch} x {shape_name}: {why}")
     options = dict(options or {})
-    for name in ("gather_weights", "seq_shard"):
-        if options.get(name):
-            raise NotImplementedError(
-                f"build_cell option {name!r} on torch is ROADMAP Queue 1 "
-                "item 10b")
     # production numerics: bf16 params/compute, f32 optimizer moments
     cfg = cfg.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
     run = run or RunConfig(arch=arch, shape=shape_name)
     rules = rules_for_shape(shape, cfg, mesh)
-    if shape.kind != "train":
-        _check_storage(rules, mesh)
+    if options.get("seq_shard"):
+        # Megatron-style sequence parallelism, as the reference: only the
+        # residual stream between blocks is split on seq over 'model'
+        rules["res_seq"] = "model"
     model = build_model(cfg, device="cpu", moe_strategy=(
         "sort" if options.get("moe_sort") else "einsum"))
     extra_ctx = cfg.frontend_len if cfg.family == "vlm" else 0

@@ -27,8 +27,13 @@ from repro_torch.distributed import axes as ax
 from repro_torch.models.params import P
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMS norm in float32, scaled by ``1 + weight`` (zero-initialised)."""
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             sp: bool = False) -> torch.Tensor:
+    """RMS norm in float32, scaled by ``1 + weight`` (zero-initialised).
+    ``sp``: ``x`` is the rank's seq slice, so the gradient of the
+    (replicated) weight is summed over ``model``."""
+    if sp:
+        weight = ax.copy_to_model(weight)
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
@@ -76,11 +81,11 @@ def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict[str, P]:
 
 
 def mlp_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
-              x: torch.Tensor) -> torch.Tensor:
-    """The MLP; column- then row-parallel where the rules split ``mlp``."""
+              x: torch.Tensor, sp: bool = False) -> torch.Tensor:
+    """The MLP; column- then row-parallel where the rules split ``mlp``
+    (``sp``: ``x`` and the output are the rank's seq slices)."""
     tp = ax.model_dim(("embed", "mlp"), (cfg.d_model, cfg.d_ff)) is not None
-    if tp:
-        x = ax.copy_to_model(x)
+    x = ax.enter_parallel(x, sp) if tp else ax.whole_seq(x, sp)
     w_up = p["w_up"]
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ w_up)
@@ -91,7 +96,7 @@ def mlp_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     else:  # gelu
         h = F.gelu(x @ w_up, approximate="tanh")
     y = h @ p["w_down"]
-    return ax.reduce_from_model(y) if tp else y
+    return ax.leave_parallel(y, sp) if tp else ax.own_seq(y, sp)
 
 
 # ---------------------------------------------------------------------------
@@ -117,14 +122,16 @@ def vocab_shard(cfg: Optional[ArchConfig]) -> Optional[Tuple[int, int]]:
 
 
 def embed_tokens(p: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                 cfg: Optional[ArchConfig] = None) -> torch.Tensor:
+                 cfg: Optional[ArchConfig] = None,
+                 sp: bool = False) -> torch.Tensor:
+    """The tokens' embeddings (``sp``: the rank's seq slice of them)."""
     shard = vocab_shard(cfg)
     if shard is None:
-        return F.embedding(tokens, p["embedding"])
+        return ax.own_seq(F.embedding(tokens, p["embedding"]), sp)
     v0, n = shard
     mine = (tokens >= v0) & (tokens < v0 + n)
     x = F.embedding(torch.where(mine, tokens - v0, 0), p["embedding"])
-    return ax.reduce_from_model(x * mine[..., None].to(x.dtype))
+    return ax.leave_parallel(x * mine[..., None].to(x.dtype), sp)
 
 
 def unembed_matrix(p: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -142,25 +149,27 @@ def logits_for(p: Dict[str, torch.Tensor], h: torch.Tensor,
 
 def chunked_cross_entropy(p: Dict[str, torch.Tensor], hidden: torch.Tensor,
                           labels: torch.Tensor, mask: torch.Tensor,
-                          chunk: int, cfg: Optional[ArchConfig] = None
+                          chunk: int, cfg: Optional[ArchConfig] = None,
+                          sp: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy without materializing (B, S, V): a loop over sequence
     chunks of ``chunk`` positions (:func:`~repro_torch.core.psg.scan`,
     named ``loss_chunks``), each a float32 logsumexp, summed in chunk
     order with the remainder chunk added last, outside the loop.  Where
     the rules split ``vocab`` (``cfg`` given), each chunk's logsumexp and
-    picked logit are the vocab-parallel ones.
+    picked logit are the vocab-parallel ones.  ``sp``: ``hidden`` is the
+    rank's seq slice, gathered here (``labels`` and ``mask`` are whole).
 
     Returns (sum_loss, sum_count) as float32 scalars; caller divides.
     """
+    w = unembed_matrix(p)
+    shard = vocab_shard(cfg)
+    hidden = (ax.enter_parallel(hidden, sp) if shard is not None
+              else ax.whole_seq(hidden, sp))
     B, S, D = hidden.shape
     chunk = min(chunk, S)
     n = S // chunk
     rem = S - n * chunk
-    w = unembed_matrix(p)
-    shard = vocab_shard(cfg)
-    if shard is not None:
-        hidden = ax.copy_to_model(hidden)
 
     def lse_picked(logits, y_c):
         if shard is None:

@@ -27,6 +27,14 @@ norm adds the ranks' sums of squares (:func:`~repro_torch.distributed.
 axes.sum_over_model`) and ``out_proj`` is row-parallel.  A rank's decode
 state is its own: the packed conv state ``[its x channels | B | C]`` and
 the SSM state of its heads (or P slice).
+
+Under sequence parallelism (``seq``: the block's input and output are the
+rank's seq slices) the input is gathered on seq before the projections
+(a reduce-scatter backward, which sums the ranks' partial cotangents of
+the column-parallel streams; the whole-weight streams B, C and, under the
+P split, dt count theirs once, :func:`~repro_torch.distributed.axes.
+model_grad_share`), so the conv and the scan see the whole sequence of
+the rank's heads, and ``out_proj``'s partial sums are reduce-scattered.
 """
 from __future__ import annotations
 
@@ -214,10 +222,17 @@ def _rms_norm_hp(y: torch.Tensor, w: torch.Tensor, eps: float,
 
 
 def _streams(p: Dict[str, torch.Tensor], x: torch.Tensor, sp: Split,
-             eq: str):
+             eq: str, seq: bool = False):
     """The block's input projections of ``x`` (``eq`` the einsum of the
-    3-D x streams): z, x, B, C and dt, on this rank's part."""
-    xc = ax.copy_to_model(x) if sp.tp else x      # column-parallel streams
+    3-D x streams): z, x, B, C and dt, on this rank's part (``seq``: x is
+    the rank's seq slice; the streams are of the whole sequence)."""
+    if seq and sp.tp:
+        xc = ax.enter_parallel(x, True)           # column-parallel streams
+        x = ax.model_grad_share(xc)               # whole-weight streams
+    elif seq:
+        xc = x = ax.whole_seq(x, True)
+    else:
+        xc = ax.copy_to_model(x) if sp.tp else x
     z = torch.einsum(eq, xc, p["w_z"])
     x_raw = torch.einsum(eq, xc, p["w_x"])
     dt = (xc if sp.dim == 1 else x) @ p["w_dt"]
@@ -236,24 +251,27 @@ def _scan_params(sp: Split, p: Dict[str, torch.Tensor], dt: torch.Tensor):
 
 
 def _out(cfg: ArchConfig, p: Dict[str, torch.Tensor], sp: Split,
-         y: torch.Tensor, eq: str) -> torch.Tensor:
-    """The gated norm's output through the row-parallel ``out_proj``."""
+         y: torch.Tensor, eq: str, seq: bool = False) -> torch.Tensor:
+    """The gated norm's output through the row-parallel ``out_proj``
+    (``seq``: reduce-scattered to the rank's seq slice)."""
     y = _rms_norm_hp(y, p["gate_norm"], cfg.norm_eps,
                      cfg.d_inner if sp.tp else None)
     out = torch.einsum(eq, y, p["out_proj"])
-    return ax.reduce_from_model(out) if sp.tp else out
+    return ax.leave_parallel(out, seq) if sp.tp else ax.own_seq(out, seq)
 
 
 def ssd_block_train(cfg: ArchConfig, p: Dict[str, torch.Tensor],
-                    x: torch.Tensor, return_state: bool = False):
-    """Full Mamba2 block, training/prefill path. x: (B,S,D) -> (B,S,D).
+                    x: torch.Tensor, return_state: bool = False,
+                    seq: bool = False):
+    """Full Mamba2 block, training/prefill path. x: (B,S,D) -> (B,S,D)
+    (``seq``: the rank's seq slices of both).
 
     With ``return_state`` also returns (conv_state, ssm_state) at sequence
     end so prefill can hand off to O(1) decode.
     """
-    B, S, _ = x.shape
     n, sp = cfg.ssm_state, split(cfg)
-    z, x_raw, B_raw, C_raw, dt = _streams(p, x, sp, "bsd,dhp->bshp")
+    z, x_raw, B_raw, C_raw, dt = _streams(p, x, sp, "bsd,dhp->bshp", seq)
+    B, S = z.shape[:2]
     xh = _causal_conv(x_raw, p["conv_x_w"], p["conv_x_b"])
     Bm = _causal_conv(B_raw, p["conv_B_w"], p["conv_B_b"])
     Cm = _causal_conv(C_raw, p["conv_C_w"], p["conv_C_b"])
@@ -271,7 +289,7 @@ def ssd_block_train(cfg: ArchConfig, p: Dict[str, torch.Tensor],
                                  cfg.ssm_chunk, return_final=True)
     y = y + D[None, None, :, None].float() * xh.float()
     y = y.to(x.dtype)
-    out = _out(cfg, p, sp, y * F.silu(z), "bshp,hpd->bsd")
+    out = _out(cfg, p, sp, y * F.silu(z), "bshp,hpd->bsd", seq)
     if return_state:
         W = cfg.conv_width
         # decode conv state stays packed [x | B | C] for a stable cache

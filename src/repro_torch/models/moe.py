@@ -18,7 +18,9 @@ Under a ``model`` axis the experts are split by their ``experts`` dim
 (or, where that does not divide the axis, each expert's FFN by ``mlp``).
 Tokens are replicated across ``model``: every rank routes every token
 with the whole router (its shards gathered at use), runs its own
-experts' buffers, and the combine's partial sums are all-reduced.
+experts' buffers, and the combine's partial sums are all-reduced.  Under
+sequence parallelism (``sp``) the input is gathered on seq first, so the
+routing groups are the whole sequence's, and the output reduce-scattered.
 
 Ordering rules kept from the reference: ``jax.lax.top_k`` puts the lower
 expert first among equal probabilities, so top-k is a stable descending
@@ -143,13 +145,13 @@ def _group_tokens(cfg: ArchConfig,
 
 def moe_apply_einsum(cfg: ArchConfig, p: Dict[str, torch.Tensor],
                      x: torch.Tensor,
-                     capacity_factor: float = CAPACITY_FACTOR
+                     capacity_factor: float = CAPACITY_FACTOR,
+                     sp: bool = False
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Grouped dispatch/combine einsum formulation. x: (B,S,D)."""
-    B, S, D = x.shape
     tp = _tensor_parallel(cfg)
-    if tp:
-        x = ax.copy_to_model(x)
+    x = ax.enter_parallel(x, sp) if tp else ax.whole_seq(x, sp)
+    B, S, D = x.shape
     xg, gs = _group_tokens(cfg, x)                           # (B,G,gs,D)
     G = xg.shape[1]
     xf = xg.reshape(B * G * gs, D)
@@ -184,8 +186,7 @@ def moe_apply_einsum(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     ye = _expert_ffn_grouped(cfg, p, xe)
     y = torch.einsum("bgsec,bgecd->bgsd", comb, ye)
     y = y.reshape(B, S, D)
-    if tp:
-        y = ax.reduce_from_model(y)
+    y = ax.leave_parallel(y, sp) if tp else ax.own_seq(y, sp)
     keepf = torch.mean(keep.float())
     metrics = {"moe_aux_loss": aux, "moe_z_loss": z,
                "moe_drop_frac": 1.0 - keepf}
@@ -205,7 +206,8 @@ def _expert_ffn_grouped(cfg: ArchConfig, p: Dict[str, torch.Tensor],
 
 def moe_apply_sort(cfg: ArchConfig, p: Dict[str, torch.Tensor],
                    x: torch.Tensor,
-                   capacity_factor: float = CAPACITY_FACTOR
+                   capacity_factor: float = CAPACITY_FACTOR,
+                   sp: bool = False
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Grouped sort-based gather/scatter dispatch (no dispatch matmul).
 
@@ -222,10 +224,9 @@ def moe_apply_sort(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     written.  That gives the reference's outputs: a row that only a
     dropped slot wrote is read back only with weight 0.
     """
-    B, S, D = x.shape
     tp = _tensor_parallel(cfg)
-    if tp:
-        x = ax.copy_to_model(x)
+    x = ax.enter_parallel(x, sp) if tp else ax.whole_seq(x, sp)
+    B, S, D = x.shape
     xg, gs = _group_tokens(cfg, x)                           # (B,G,gs,D)
     G = xg.shape[1]
     n = B * G
@@ -269,8 +270,7 @@ def moe_apply_sort(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     y = torch.zeros((n * gs, D), dtype=torch.float32, device=dev).index_add_(
         0, tokens.reshape(-1), contrib.float())
     y = y.to(x.dtype).reshape(B, S, D)
-    if tp:
-        y = ax.reduce_from_model(y)
+    y = ax.leave_parallel(y, sp) if tp else ax.own_seq(y, sp)
     keepf = torch.mean(keep.float(), dim=1)                  # per group
     metrics = {"moe_aux_loss": aux, "moe_z_loss": z,
                "moe_drop_frac": 1.0 - torch.mean(keepf)}
@@ -282,7 +282,7 @@ SERVE_CAPACITY_FACTOR = 2.0     # serve-time: generous, dropless at small T
 
 def moe_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
               strategy: str = "einsum",
-              capacity_factor: float = CAPACITY_FACTOR):
+              capacity_factor: float = CAPACITY_FACTOR, sp: bool = False):
     if strategy == "sort":
-        return moe_apply_sort(cfg, p, x, capacity_factor)
-    return moe_apply_einsum(cfg, p, x, capacity_factor)
+        return moe_apply_sort(cfg, p, x, capacity_factor, sp)
+    return moe_apply_einsum(cfg, p, x, capacity_factor, sp)

@@ -10,20 +10,27 @@ Per-layer leaves keep the JAX package's stacked layout: one tensor with
 a leading ``n_layers`` axis per leaf; the layer loop takes views of it.
 
 Under a ``model`` axis of the active rules a rank holds each leaf's
-local shard (:func:`repro_torch.distributed.axes.local_shard`): fresh
-weights are drawn whole from the generator's stream and sliced, so a
-rank's shard is bit-equal to that slice of the one-process tensor.
+local shard (:func:`repro_torch.distributed.axes.local_shard`), and
+under ``gather_weights`` its slice on ``data`` too: fresh weights are
+drawn whole from the generator's stream and sliced, so a rank's shard is
+bit-equal to that slice of the one-process tensor.  A model gathers the
+``data`` slices at use (:func:`gather_at_use`): one layer's leaves at the
+entry of its loop body, the others at the entry of the model function
+(ZeRO-3: the whole weights of one layer live at a time, and a
+checkpointed layer's recompute gathers them again).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.distributed.axes import local_shape, local_shard, spec_for
+from repro_torch.distributed.axes import (local_shape, local_shard, option,
+                                          spec_for, weight_constraint)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +111,33 @@ def local_params(params: Dict[str, Any], specs: Specs) -> Dict[str, Any]:
                 else local_shard(v, flat[path + (k,)].axes)
                 for k, v in tree.items()}
     return go(params, ())
+
+
+def gather_at_use(tree: Dict[str, Any], make_specs: Callable[[Any], Specs],
+                  cfg: Any, skip: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    """``tree`` with each leaf that ``gather_weights`` stores split on
+    ``data`` gathered whole there (:func:`~repro_torch.distributed.axes.
+    weight_constraint`: an all-gather forward, a reduce-scatter of its
+    gradient backward), the other leaves as they are.  ``make_specs(cfg)``
+    is the congruent spec tree, built once a config and only under the
+    option; the subtrees under the keys in ``skip`` (the stacked layers,
+    gathered a layer at a time) pass through."""
+    if not option("gather_weights"):
+        return tree
+    return _gather(tree, _spec_tree(make_specs, cfg), skip)
+
+
+@functools.lru_cache(maxsize=None)
+def _spec_tree(make_specs: Callable[[Any], Specs], cfg: Any) -> Specs:
+    return make_specs(cfg)
+
+
+def _gather(tree: Dict[str, Any], specs: Specs,
+            skip: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    return {k: v if k in skip
+            else _gather(v, specs[k]) if isinstance(v, dict)
+            else weight_constraint(v, *specs[k].axes, shape=specs[k].shape)
+            for k, v in tree.items()}
 
 
 def param_specs_tree(specs: Specs) -> Dict[str, Any]:

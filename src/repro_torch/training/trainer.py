@@ -10,13 +10,16 @@ no backward, as in the reference).
 Data parallelism is the step's own, not a compiler's: under
 :func:`repro_torch.distributed.axes.use_rules` with a mesh, the step
 averages its gradients, its loss and its MoE metrics over the mesh's
-``data`` axis with one bucketed all-reduce, which the traced PSG holds
-as a Comm vertex at its root.  It does so at every scale, one rank
-included, so the PSGs of a scaling series have the same vertices.  Under
-a ``model`` axis each rank's bucket holds its own parameter shards and
-the all-reduce runs over its ``data`` group; the model's own collectives
-(tensor-parallel layers, the MoE load-balance means) sit inside the
-layer loop.  Without a mesh it runs no collective.
+batch axes ('pod', 'data') with one bucketed all-reduce over their group,
+which the traced PSG holds as a Comm vertex at its root.  It does so at
+every scale, one rank included, so the PSGs of a scaling series have the
+same vertices.  Under a ``model`` axis each rank's bucket holds its own
+parameter shards; the model's own collectives (tensor-parallel layers,
+the MoE load-balance means) sit inside the layer loop.  Under
+``gather_weights`` the leaves a rank stores split on ``data`` stay out of
+the bucket: the reduce-scatter that ends their gathers' backward has
+summed them over ``data`` already (over a pod axis they have an
+all-reduce of their own).  Without a mesh it runs no collective.
 
 ``Trainer`` is the twin of the reference's: data, the step, checkpoints
 and the ScalAna hooks (the sampled ``GraphProfiler``, per-step wall
@@ -70,34 +73,57 @@ class TrainState:
 DATA_MEAN_METRICS = ("moe_z_loss", "moe_drop_frac")
 
 
+def _all_reduce_sum(flat: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+    flat = funcol.all_reduce(flat, "sum", group)
+    return flat.wait() if isinstance(flat, funcol.AsyncCollectiveTensor) \
+        else flat
+
+
 def data_parallel_mean(loss: torch.Tensor, grads: Tree, mesh,
-                       metrics: Optional[Dict[str, torch.Tensor]] = None
+                       metrics: Optional[Dict[str, torch.Tensor]] = None,
+                       specs: Optional[Specs] = None
                        ) -> Tuple[torch.Tensor, Tree,
                                   Dict[str, torch.Tensor]]:
     """The loss, gradients and :data:`DATA_MEAN_METRICS` averaged over
-    ``mesh``'s ``data`` axis: one all-reduce of one float32 bucket (every
-    gradient leaf, the loss, then the metrics), so the step has exactly
-    one data-axis collective and its loss is the global batch's mean.
-    Summed, then divided by the axis size: a sum is the reduction every
+    ``mesh``'s batch axes ('pod', 'data'): one all-reduce of one float32
+    bucket (every gradient leaf, the loss, then the metrics) over their
+    group (made when the mesh was installed), so the step has exactly one
+    data-side collective and its loss is the global batch's mean.
+    Summed, then divided by the axes' size: a sum is the reduction every
     backend carries on CUDA tensors, Gloo's too (the backend of several
     ranks on one card).  Under a ``model`` axis the leaves are the rank's
-    shards and the group is its ``data`` group."""
-    import torch.distributed._functional_collectives as funcol
+    shards.  ``specs`` (the model's) marks the leaves stored split on
+    ``data`` under ``gather_weights``: they stay out of the bucket, as
+    their backward summed them over ``data`` already; over a ``pod`` axis
+    they are summed by an all-reduce of their own; then divided by the
+    same size."""
     metrics = dict(metrics or {})
     names = [k for k in DATA_MEAN_METRICS if k in metrics]
     gl = leaves(grads)
-    flat = torch.cat([g.reshape(-1).float() for g in gl]
+    split = [False] * len(gl) if specs is None else [
+        ax.data_dim(sp.axes, sp.shape) is not None for _, sp in _walk(specs)]
+    group, n = ax.batch_group()
+    flat = torch.cat([g.reshape(-1).float() for g, s in zip(gl, split)
+                      if not s]
                      + [loss.reshape(1).float()]
                      + [metrics[k].reshape(1).float() for k in names])
-    n = ax.axis_sizes(mesh)["data"]
-    flat = funcol.all_reduce(flat, "sum", mesh.get_group("data"))
-    flat = flat.wait() if isinstance(flat, funcol.AsyncCollectiveTensor) \
-        else flat
+    flat = _all_reduce_sum(flat, group)
     flat.div_(n)                     # the sum is ours: one bucket, not two
-    out, at = [], 0
-    for g in gl:
-        out.append(flat[at:at + g.numel()].reshape(g.shape).to(g.dtype))
-        at += g.numel()
+    own = [g for g, s in zip(gl, split) if s]
+    if own:
+        pod = torch.cat([g.reshape(-1).float() for g in own])
+        if "pod" in ax.axis_sizes(mesh):
+            pod = _all_reduce_sum(pod, mesh.get_group("pod"))
+        pod = pod / n
+    out, at, at_own = [], 0, 0
+    for g, s in zip(gl, split):
+        if s:
+            part, at_own = pod[at_own:at_own + g.numel()], \
+                at_own + g.numel()
+        else:
+            part, at = flat[at:at + g.numel()], at + g.numel()
+        out.append(part.reshape(g.shape).to(g.dtype))
     for i, k in enumerate(names):
         metrics[k] = flat[at + 1 + i].to(metrics[k].dtype)
     return flat[at].to(loss.dtype), unflatten_like(grads, out), metrics
@@ -106,13 +132,21 @@ def data_parallel_mean(loss: torch.Tensor, grads: Tree, mesh,
 def model_parallel_norm(tree: Tree, specs: Specs) -> torch.Tensor:
     """The global norm of a tree of this rank's shards (congruent with
     ``specs``): the squares of the leaves split on ``model`` summed over
-    its ranks, the whole leaves' counted once."""
-    whole, split = [], []
+    its ranks, of those split on ``data`` (``gather_weights``) over its
+    ranks, the whole leaves' counted once."""
+    sums: Dict[Tuple[str, ...], torch.Tensor] = {}
     for leaf, (_, spec) in zip(leaves(tree), _walk(specs)):
+        key = tuple(a for _, a, _ in ax.storage_splits(spec.axes,
+                                                         spec.shape))
         sq = torch.sum(torch.square(leaf.float()))
-        (whole if ax.model_dim(spec.axes, spec.shape) is None
-         else split).append(sq)
-    total = sum(whole) + ax.reduce_from_model(sum(split))
+        sums[key] = sums[key] + sq if key in sums else sq
+    total = None
+    for key, sq in sums.items():
+        if "data" in key:
+            sq = ax.all_reduce_sum(sq, ax.axis_group("data"))
+        if "model" in key:
+            sq = ax.reduce_from_model(sq)
+        total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
@@ -165,13 +199,13 @@ def make_train_step(model: ModelBundle, run: RunConfig,
         mesh = active_mesh()
         if mesh is not None:
             loss, grads, metrics = data_parallel_mean(loss, grads, mesh,
-                                                      metrics)
+                                                      metrics, model.specs)
         residual = state.residual
         if compress and residual is not None:
             grads, residual = error_feedback_update(grads, residual)
         lr = lr_fn(state.step)
         norm = {}
-        if ax.model_size(mesh) > 1:
+        if mesh is not None and ax.sharded_storage():
             norm["norm_fn"] = lambda t: model_parallel_norm(t, model.specs)
         params, opt, opt_metrics = adamw_update(
             grads, state.opt, state.params, lr=lr,
@@ -242,10 +276,11 @@ def _map_sharded(tree: Dict[str, Any], specs: Specs, fn) -> Dict[str, Any]:
 
 
 def whole_state(state: TrainState, specs: Specs) -> TrainState:
-    """``state`` with every leaf split on ``model`` gathered whole under
-    the active rules (a collective that each rank of the axis joins); the
-    state itself without a ``model`` axis above 1."""
-    if ax.model_size() == 1:
+    """``state`` with every leaf split on ``model`` (and on ``data`` under
+    ``gather_weights``) gathered whole under the active rules (a
+    collective that each rank of the axes joins); the state itself where
+    a rank stores every leaf whole."""
+    if not ax.sharded_storage():
         return state
     flat = [sp for _, sp in _walk(specs)]
 
@@ -304,11 +339,14 @@ class Trainer:
     without a card.  With a ``mesh`` (a DeviceMesh over the process
     group, :func:`repro_torch.launch.mesh.make_host_mesh`) each rank
     reads its shard of the global batch and the step averages over the
-    ``data`` axis.  Every rank joins a checkpoint's gather; the rank at
+    batch axes; ``options`` are :func:`use_rules`' (``gather_weights``:
+    parameters, moments and residual stored split on ``data`` too).
+    Every rank joins a checkpoint's gather; the rank at
     coordinate 0 of every mesh axis writes it, and the others wait at a
     barrier after the last save of :meth:`train` until it is committed."""
 
     def __init__(self, run: RunConfig, *, mesh=None, rules=None,
+                 options: Optional[Dict[str, bool]] = None,
                  arch_cfg: Optional[ArchConfig] = None,
                  shape: Optional[ShapeConfig] = None,
                  global_batch: Optional[int] = None,
@@ -317,6 +355,7 @@ class Trainer:
         self.run = run
         self.mesh = mesh
         self.rules = rules
+        self.options = dict(options or {})
         self.device = torch.device(device)
         self.cfg = arch_cfg if arch_cfg is not None else get_config(run.arch)
         self.shape = shape if shape is not None else SHAPES[run.shape]
@@ -327,8 +366,7 @@ class Trainer:
         self.dataset = make_dataset(self.cfg, self.shape, seed=run.seed,
                                     global_batch=global_batch)
         if mesh is not None:
-            self.dataset = self.dataset.shard(mesh["data"].size(),
-                                              mesh.get_local_rank("data"))
+            self.dataset = self.dataset.shard(*ax.batch_coord(mesh))
         self.ckpt = (CheckpointManager(run.checkpoint_dir,
                                        keep=run.keep_checkpoints)
                      if run.checkpoint_dir else None)
@@ -373,8 +411,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _rules(self):
-        return (use_rules(self.mesh, self.rules) if self.mesh is not None
-                else contextlib.nullcontext())
+        return (use_rules(self.mesh, self.rules, self.options)
+                if self.mesh is not None else contextlib.nullcontext())
 
     def _writes(self) -> bool:
         """Whether this rank writes the checkpoints (coordinate 0 of every

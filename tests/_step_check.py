@@ -16,6 +16,9 @@ is split instead:
   the step's own moments, recomputed here, within 1e-6 relative (1e-5
   of lr absolute): a wrong learning rate or a dropped weight decay on a
   shard fails here.
+
+``run_ranks`` runs a script as CPU ranks of one Gloo process group (the
+multi-rank tests' harness).
 """
 import numpy as np
 import torch
@@ -55,3 +58,33 @@ def assert_first_step_close(got_params, got_mu, got_nu, old_params, mu, *,
                                    first_step(p0, m, v, lr=lr).numpy(),
                                    rtol=1e-6, atol=1e-5 * lr,
                                    err_msg="params")
+
+
+def run_ranks(body, world, tmp_path, args=(), timeout_s=240):
+    """Run the script ``body`` as ``world`` CPU ranks (``python -c body
+    rank world init out *args``, rendezvous through a file in
+    ``tmp_path``); each rank's result, which it saves to ``out`` with
+    ``torch.save``."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
+                                       "src"))
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1")
+    init = str(tmp_path / f"init_{world}")
+    outs = [str(tmp_path / f"rank{r}_of_{world}.pt") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-c", body, str(r),
+                               str(world), init, outs[r], *map(str, args)],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=timeout_s)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    return [torch.load(o, weights_only=False) for o in outs]

@@ -132,13 +132,17 @@ FAMILY_LOSS = textwrap.dedent("""
 def test_constraints_identity_on_data_and_raise_on_model(tmp_path):
     """Identity on ``data``.  Under a ``model`` axis a rank's tensors are
     its shards already, so the hint is the identity for every family's
-    names, and the model-axis collective runs where a layer calls one (an
-    all-reduce over the model group, traced here for rank 0 of a fake
-    two-rank group).  A sequence dim on ``model`` and the FSDP gather
-    still raise (ROADMAP item 10b).  The SSM, hybrid and encoder-decoder
-    families' smoke losses run on rank 0's shards under a (1, 2) fake
-    group (whose collectives move nothing), and two Gloo ranks give the
-    one-process loss within 1e-5."""
+    names, a sequence dim on ``model`` included (the models call their
+    sequence-parallel collectives themselves), and the model-axis
+    collective runs where a layer calls one (an all-reduce over the model
+    group, traced here for rank 0 of a fake two-rank group).  The FSDP
+    gather (``weight_constraint`` under ``gather_weights``) needs the
+    weight's global shape, leaves a weight whole on ``data`` as it is,
+    and raises for axis sizes, where there is no group to gather over.
+    The SSM, hybrid and encoder-decoder families' smoke losses run on
+    rank 0's shards under a (1, 2) fake group (whose collectives move
+    nothing), and two Gloo ranks give the one-process loss within
+    1e-5."""
     from repro_torch.launch.mesh import fake_process_group, make_host_mesh
     x = torch.ones(4, 4)
     with ax.use_rules({"data": 4, "model": 1}):
@@ -148,12 +152,15 @@ def test_constraints_identity_on_data_and_raise_on_model(tmp_path):
         assert ax.logical_constraint(x, "batch", "heads") is x
         for name in ("ssm_inner", "ssm_heads", "ssm_pdim"):
             assert ax.logical_constraint(x, "batch", name) is x
-        with pytest.raises(NotImplementedError, match="10b"):
+        with pytest.raises(ValueError, match="global shape"):
             ax.weight_constraint(x, "embed", "mlp")
+        assert ax.weight_constraint(x, "mlp", "vocab", shape=(8, 8)) is x
+        with pytest.raises(ValueError, match="DeviceMesh"):
+            ax.weight_constraint(x, "embed", "mlp", shape=(8, 8))
     with ax.use_rules({"data": 1, "model": 2},
                       dict(ax.DEFAULT_RULES, res_seq="model")):
-        with pytest.raises(NotImplementedError, match="10b"):
-            ax.logical_constraint(x, "batch", "res_seq", "embed")
+        assert ax.logical_constraint(x, "batch", "res_seq", "embed") is x
+        assert ax.seq_parallel(16) and not ax.seq_parallel(15)
     with fake_process_group(2):
         with ax.use_rules(make_host_mesh(2, device="cpu")):
             traced = psg_lib.trace(ax.reduce_from_model, x)

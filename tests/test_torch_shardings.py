@@ -177,15 +177,40 @@ def test_train_state_shardings_equal_the_reference(cells, ref_specs, arch):
 
 
 def test_build_cell_options_and_fallbacks():
+    """Both options build and trace for rank 0 of 8 on (4, 2), each with
+    its collectives: under ``gather_weights`` the rank's parameters are
+    split on ``data`` too (the embedding a quarter of its rows' width) and
+    the trace all-gathers them over the data group and reduce-scatters
+    their gradients; under ``seq_shard`` the rules put ``res_seq`` on
+    ``model`` and the trace all-gathers and reduce-scatters the sequence
+    over the model group.  ``moe_sort`` picks the sort dispatch.  The
+    decode fallback of KV heads that do not divide the model axis (1, 4):
+    the rank's cache holds a quarter of the positions and every KV head,
+    and the traced step gathers the token's query heads and all-reduces
+    the partial softmax's max and sums over the model group."""
+    data, model = "[[0, 2, 4, 6]]", "[[0, 1]]"
+
+    def comms(cell):
+        return {(v.comm_kind, str(v.meta["replica_groups"]))
+                for v in cell.lower().psg.by_kind(COMM)}
+
+    cfg = get_smoke("tinyllama-1.1b")
     with fake_process_group(8):
         mesh = make_host_mesh(2, device="cpu")
-        cfg = get_smoke("tinyllama-1.1b")
         shape = ShapeConfig("t", 16, 4, "train")
-        for opt in ("gather_weights", "seq_shard"):
-            with pytest.raises(NotImplementedError, match="10b"):
-                shardings.build_cell("tinyllama-1.1b", "train_4k", mesh,
-                                     cfg=cfg, shape=shape,
-                                     options={opt: True})
+        cells = {opt: shardings.build_cell("tinyllama-1.1b", "train_4k",
+                                           mesh, cfg=cfg, shape=shape,
+                                           options={opt: True})
+                 for opt in ("gather_weights", "seq_shard")}
+        fsdp = comms(cells["gather_weights"])
+        assert {("all_gather", data), ("reduce_scatter", data)} <= fsdp
+        assert ("all_gather", model) not in fsdp
+        emb = cells["gather_weights"].args[0].params["embed"]["embedding"]
+        assert tuple(emb.shape) == (cfg.vocab_size // 2, cfg.d_model // 4)
+        assert cells["seq_shard"].rules["res_seq"] == "model"
+        seq = comms(cells["seq_shard"])
+        assert {("all_gather", model), ("reduce_scatter", model)} <= seq
+        assert ("all_gather", data) not in seq
         cell = shardings.build_cell(
             "moonshot-v1-16b-a3b", "train_4k", mesh,
             cfg=get_smoke("moonshot-v1-16b-a3b"), shape=shape,
@@ -194,10 +219,22 @@ def test_build_cell_options_and_fallbacks():
     # the decode fallback of KV heads that do not divide the model axis
     with fake_process_group(4):
         mesh = make_host_mesh(4, device="cpu")
-        with pytest.raises(NotImplementedError, match="10b"):
-            shardings.build_cell("tinyllama-1.1b", "decode_32k", mesh,
-                                 cfg=cfg,
-                                 shape=ShapeConfig("d", 16, 4, "decode"))
+        cell = shardings.build_cell("tinyllama-1.1b", "decode_32k", mesh,
+                                    cfg=cfg,
+                                    shape=ShapeConfig("d", 16, 4, "decode"))
+        assert (cell.rules["kv_seq"], cell.rules["kv_heads"]) == ("model",
+                                                                  None)
+        assert tuple(cell.args[1].kv.k.shape) == (
+            cfg.n_layers, 4, 4, cfg.n_kv_heads, cfg.resolved_head_dim())
+        psg = cell.lower().psg
+        group = [[0, 1, 2, 3]]
+        ops = [v.comm_kind for v in psg.by_kind(COMM)
+               if v.meta["replica_groups"] == group]
+        # per layer: the all-gathers of wk's and wv's shards (split
+        # inside a head) and of the query heads, the all-reduces of the
+        # max, of the sums and of wo's partial sums; the logits' gather
+        assert ops.count("all_gather") == 3 * cfg.n_layers + 1
+        assert ops.count("all_reduce") >= 3 * cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
