@@ -191,7 +191,27 @@ drives the port's main path — the scaling-loss diagnosis — on the card:
    under ``long_500k``'s rules, a 262784-token prompt prefilled by this
    process (through ``ssd_scan``) into a 524288-position cache, each
    rank decoding 16 greedy tokens from its half (both halves filled),
-   equal to one process's.
+   equal to one process's;
+18. dryrun — ``python -m repro_torch.launch.dryrun`` over tinyllama-1.1b
+   and mamba2-130m x train_4k and prefill_32k on both production meshes
+   (256 and 512 ranks of a fake process group), under the baseline and
+   ``seq_shard``, as four subprocesses on the host's cores (no card
+   visible to them) while this process uses the card: every artifact
+   ``ok``; then ``python -m repro_torch.launch.autotune`` names a variant
+   for each cell.  Meanwhile the cost walk (``core/fx_walk.py``) is held
+   against three cells this card runs at full width and 2 layers on a
+   (1, 1) mesh over a one-rank group (tinyllama-1.1b's train step at
+   tokens (2, 2049), mamba2-130m's 32768-token prefill, tinyllama's
+   decode step of 8 rows from a 32768-position cache), each from seeded
+   bf16 state: the argument bytes exactly those on the card, the
+   matrix-product FLOPs equal to ``FlopCounterMode``'s, the allocator's
+   rise within 20% of the walk's peak, and the roofline bound with one
+   card's figures at most the median measured step; then the unfused
+   detect chain (``fused=False``) at the fleet's 65536 processes, equal
+   to the fused cycle and to numpy, with no fused launch; then
+   ``examples/serve_llm_torch.py`` (every request served) and
+   ``examples/train_100m_torch.py --unbroken`` (the split run equal to
+   the unbroken one, the report rendered).
 
 The detection kernels' launch counts are reset just before phase 3 and
 read just after phase 4, again just before phase 7's detect and just
@@ -210,7 +230,10 @@ counts of phase 16 just before each kernel loss and prefill and just
 after (added to the JSON line's), and each rank's flash and ``ssd_scan``
 counts of phase 17 just before each kernel loss and just after, and this
 process's ``ssd_scan`` count just before phase 17's long prefill and
-just after (added to the JSON line's).
+just after (added to the JSON line's), and the detection counts just
+before phase 18's legacy cycle and just after (it must launch none),
+then just before its fused cycle and just after (added to the JSON
+line's).
 It exits non-zero, printing no
 result, when any check fails, when there is no CUDA card, or when the
 port is not next to it.  The last line is ``{"ok": true, "device":
@@ -2236,7 +2259,7 @@ def phase_scaling(card: str):
               f" {[round(1e3 * x, 3) for x in raw['step_times']]}), "
               f"all_reduce v{comms[0].vid} {1e3 * t.mean():.3f} ms mean over"
               f" ranks (max {1e3 * t.max():.3f}; NVLink ring bound with a "
-              f"card a rank {1e3 * ring / (h100().NVLINK_BANDWIDTH / 2):.3f}"
+              f"card a rank {1e3 * ring / h100().NVLINK_BANDWIDTH:.3f}"
               f" ms), {comms[0].comm_bytes:.0f} B; overhead_frac "
               f"{raw['overhead'].get('overhead_frac', 0.0):.4f}; trace "
               f"{raw['trace_s']:.2f} s (rank 0); peak memory "
@@ -3950,6 +3973,329 @@ def phase_fsdp_sp(card: str) -> dict:
     return launches
 
 
+# -- phase 18: the dry run, the walk against the card, the legacy chain ----
+
+# the dry run and the autotuner, as subprocesses (one a (arch, option)),
+# over these cells of both production meshes under the baseline and
+# seq_shard; each cell traced at one and two blocks
+DRYRUN_ARCHS = ("tinyllama-1.1b", "mamba2-130m")
+DRYRUN_SHAPES = ("train_4k", "prefill_32k")
+DRYRUN_OPTS = ("", "seq_shard")
+DRYRUN_TIMEOUT_S = 600
+# three cells this card runs at full width and WALK_LAYERS blocks, each on
+# a (1, 1) mesh over a one-rank group: (arch, shape name, (seq_len,
+# batch, kind)); train tokens (2, 2049), a 32768-token prefill, a decode
+# step of 8 rows from a 32768-position cache
+WALK_CELLS = [("tinyllama-1.1b", "train_4k", (2048, 2, "train")),
+              ("mamba2-130m", "prefill_32k", (32768, 1, "prefill")),
+              ("tinyllama-1.1b", "decode_32k", (32768, 8, "decode"))]
+WALK_LAYERS = 2
+PEAK_TOL = 0.2              # the walk's peak against the allocator's rise
+TRAIN_EXAMPLE_STEPS = 10
+
+
+def _dryrun_procs(out: str) -> list:
+    """Start the dry runs (CPU only: no card is visible to them)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for arch in DRYRUN_ARCHS:
+        for opt in DRYRUN_OPTS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", ",".join(DRYRUN_SHAPES),
+                   "--mesh", "both", "--out", out] + (
+                       ["--opt", opt] if opt else [])
+            log = open(os.path.join(out, f"log_{arch}_{opt or 'base'}"),
+                       "w")
+            procs.append((subprocess.Popen(cmd, env=env, cwd=str(ROOT),
+                                           stdout=log,
+                                           stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def _dryrun_finish(procs: list, out: str) -> dict:
+    """Wait for the dry runs, check every artifact, run the autotuner."""
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
+    for p, log in procs:
+        try:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        check(p.returncode == 0, f"dryrun: {' '.join(p.args[3:])} exited "
+              f"{p.returncode}:\n{open(log.name).read()[-2000:]}")
+    recs = []
+    for name in sorted(os.listdir(out)):
+        if name.endswith(".json"):
+            with open(os.path.join(out, name)) as f:
+                recs.append(json.load(f))
+    want = (len(DRYRUN_ARCHS) * len(DRYRUN_SHAPES) * 2 * len(DRYRUN_OPTS))
+    check(len(recs) == want and all(r["status"] == "ok" for r in recs),
+          f"dryrun: {len(recs)} artifacts, statuses "
+          f"{sorted({r['status'] for r in recs})} (want {want} ok)")
+    plan_path = os.path.join(out, "plan.json")
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.autotune", "--dir", out,
+         "--write", plan_path], env=dict(os.environ,
+                                         PYTHONPATH=str(ROOT / "src")),
+        cwd=str(ROOT), capture_output=True, text=True, timeout=120)
+    check(done.returncode == 0, f"autotune: {done.stderr[-2000:]}")
+    with open(plan_path) as f:
+        plan = json.load(f)
+    cells = {(r["arch"], r["shape"], r["mesh"]) for r in recs}
+    check({(r["arch"], r["shape"], r["mesh"]) for r in plan} == cells
+          and all(r["recommended"] in ("baseline", "seq_shard")
+                  for r in plan),
+          f"autotune: the plan {plan} does not name a variant a cell")
+    return {"recs": recs, "plan": plan}
+
+
+def _matmul_flops(counter) -> int:
+    import torch
+    mm = (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+          torch.ops.aten.baddbmm)
+    return sum(n for op, n in counter.get_flop_counts()["Global"].items()
+               if op in mm)
+
+
+def walk_cell(arch: str, shape_name: str, dims, card: str) -> dict:
+    """One cell on this card against the walk of its trace: argument
+    bytes exact, matrix-product FLOPs equal to ``FlopCounterMode``'s,
+    the allocator's rise within ``PEAK_TOL`` of the walk's peak, and the
+    roofline bound with one card's figures at most the median step."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import fx_walk
+    from repro_torch.core.psg import _flatten
+    from repro_torch.launch import dryrun, shardings
+    from repro_torch.launch.mesh import make_host_mesh
+
+    seq, batch, kind = dims
+    mesh = make_host_mesh(1, device="cuda")
+    cell = shardings.build_cell(
+        arch, shape_name, mesh, cfg=dryrun.cut(get(arch), WALK_LAYERS),
+        shape=ShapeConfig(shape_name, seq, batch, kind))
+    t0 = time.perf_counter()
+    cost = fx_walk.walk(cell.lower().graph_module)
+    trace_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    real = cell.materialize("cuda", seed=0)
+    arg_bytes = sum(t.untyped_storage().nbytes() for t in _flatten(real)[0])
+    out = cell.run(*real)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    del out
+    with FlopCounterMode(display=False) as counter:
+        cell.run(*real)
+    flops = _matmul_flops(counter)
+    ms = cuda_ms(lambda: cell.run(*real), reps=5, warm=1)
+    roof = dryrun.roofline({"dot_flops": cost.dot_flops,
+                            "mem_bytes": cost.mem_bytes,
+                            "nvlink_bytes": 0.0, "ib_bytes": 0.0})
+    bound = max(roof["compute_s"], roof["memory_s"]) * 1e3
+    tag = f"{arch} {kind} {dims[:2]} at {WALK_LAYERS} layers"
+    print(f"  {tag}: argument bytes {cost.argument_bytes} walk / {arg_bytes} "
+          f"on the card; matmul FLOPs {cost.dot_flops:.6e} walk / "
+          f"{flops:.6e} FlopCounterMode; peak {cost.peak_bytes / 2**30:.3f} "
+          f"GiB walk (temp {cost.temp_bytes / 2**30:.3f}) / "
+          f"{rise / 2**30:.3f} GiB allocator rise "
+          f"({rise / cost.peak_bytes:.3f}x); mem bytes "
+          f"{cost.mem_bytes / 2**30:.3f} GiB; step {ms:.3f} ms (median of 5,"
+          f" CUDA events) vs bound {bound:.3f} ms ({roof['bottleneck']}; "
+          f"compute {roof['compute_s'] * 1e3:.3f}, memory "
+          f"{roof['memory_s'] * 1e3:.3f}): measured/bound "
+          f"{ms / bound:.3f}; trace + walk {trace_s:.1f} s  [{card}]")
+    check(cost.argument_bytes == arg_bytes,
+          f"dryrun: {tag}: argument bytes {cost.argument_bytes} != "
+          f"{arg_bytes}")
+    check(cost.dot_flops == flops,
+          f"dryrun: {tag}: matmul FLOPs {cost.dot_flops} != {flops}")
+    check(abs(rise - cost.peak_bytes) <= PEAK_TOL * cost.peak_bytes,
+          f"dryrun: {tag}: allocator rise {rise} vs walk peak "
+          f"{cost.peak_bytes}")
+    check(bound <= ms, f"dryrun: {tag}: bound {bound:.3f} ms above the "
+          f"measured {ms:.3f} ms")
+    del real
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "bound_ms": bound, "rise": rise,
+            "peak": cost.peak_bytes}
+
+
+def _view_cycle(series, live, sc, fused: bool):
+    """One detect cycle through the view entry points, with
+    ``detect_non_scalable``'s and ``detect_abnormal``'s defaults: the
+    non-scalable detect over the series and the abnormal detect at the
+    top scale."""
+    import numpy as np
+    from repro_torch.core import detect_torch
+
+    scales = sorted(series)
+    V = len(live.psg.vertices)
+    top = live.psg.children(live.psg.root)
+    present = np.ones((len(scales), V), bool)
+    views = [series[n].device_view("cuda") for n in scales]
+    ns = detect_torch.non_scalable_views(scales, views, V, present, top,
+                                         -1.0, 0.35, 0.02, "mean",
+                                         fused=fused)
+    ab = detect_torch.abnormal_topk_view(views[-1], V, top, sc.abnorm_thd,
+                                         0.01, sc.top_k, fused=fused)
+    return ns, ab
+
+
+def phase_legacy(card: str) -> dict:
+    """The unfused chain on the card at the fleet's 65536 processes: the
+    same answer as the fused cycle and numpy's, no fused launch.  Returns
+    the fused cycle's launches."""
+    import numpy as np
+    from repro_torch.core.detect import detect_abnormal, detect_non_scalable
+    from repro_torch.kernels.detect_fused import kernel, ops
+
+    sc, plan, series = fleet_series()
+    live = series[FLEET_SCALES[-1]]
+    _view_cycle(series, live, sc, fused=True)          # upload, caches
+    ops.reset_launch_counts()
+    kernel.reset_launches()
+    legacy = _view_cycle(series, live, sc, fused=False)
+    check(not any(ops.launch_counts.values())
+          and kernel.ab_fused.launches == kernel.ns_fused.launches == 0,
+          f"legacy: fused launches {dict(ops.launch_counts)}")
+    fused = _view_cycle(series, live, sc, fused=True)
+    launches = {"ab_fused": kernel.ab_fused.launches,
+                "ns_fused": kernel.ns_fused.launches}
+    check(launches == {"ab_fused": 1, "ns_fused": 1},
+          f"legacy: the fused cycle launched {launches}")
+    (M, slope, share, flags), ab = legacy
+    check(np.array_equal(flags, fused[0][3])
+          and all(np.array_equal(a, b) for a, b in zip(ab[:2], fused[1][:2]))
+          and ab[3] == fused[1][3],
+          "legacy: flags or top-k differ from the fused cycle")
+    check(np.allclose(slope, fused[0][1], rtol=1e-12, atol=1e-12),
+          "legacy: slopes differ from the fused cycle")
+    V = len(live.psg.vertices)
+    ns_np = detect_non_scalable(series, backend="numpy", top_k=V)
+    ab_np = detect_abnormal(live, backend="numpy", abnorm_thd=sc.abnorm_thd,
+                            top_k=sc.top_k)
+    check(sorted(np.flatnonzero(flags)) == sorted(d.vid for d in ns_np)
+          and all(abs(slope[d.vid] - d.slope)
+                  <= 1e-12 * max(abs(d.slope), 1.0) for d in ns_np),
+          "legacy: non-scalable differs from numpy")
+    check(list(zip(ab[1].tolist(), ab[0].tolist()))
+          == [(a.proc, a.vid) for a in ab_np],
+          "legacy: abnormal differs from numpy")
+    times = {}
+    for name, on in (("legacy", False), ("fused", True)):
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            _view_cycle(series, live, sc, fused=on)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        times[name] = statistics.median(ts)
+    print(f"  {FLEET_SCALES[-1]} procs: legacy cycle = fused = numpy "
+          f"({len(ns_np)} non-scalable, {len(ab_np)} abnormal), no fused "
+          f"launch on the legacy path; cycle {times['legacy']:.3f} ms "
+          f"legacy, {times['fused']:.3f} ms fused (median of 5, host "
+          f"clock, caches warm)  [{card}]")
+    return launches
+
+
+def _example(name: str, *args) -> str:
+    done = subprocess.run([sys.executable, str(ROOT / "examples" / name),
+                           *args], cwd=str(ROOT), capture_output=True,
+                          text=True, timeout=600)
+    check(done.returncode == 0,
+          f"{name} exited {done.returncode}:\n{done.stderr[-3000:]}")
+    return done.stdout
+
+
+def phase_dryrun(card: str) -> dict:
+    """The dry run and the autotuner (subprocesses on the host's cores,
+    while this process uses the card), the walk held against three cells
+    on the card, the unfused detect chain at fleet scale, and the two
+    examples.  Returns the phase's fused launches."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_group
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    t0 = time.perf_counter()
+    procs = _dryrun_procs(out)
+    try:
+        check(not dist.is_initialized(), "dryrun: a process group is open")
+        init = tempfile.mktemp(prefix="chip_smoke_walk_")
+        init_group(0, 1, f"file://{init}", device="cuda")
+        try:
+            for arch, shape_name, dims in WALK_CELLS:
+                walk_cell(arch, shape_name, dims, card)
+        finally:
+            dist.destroy_process_group()
+            if os.path.exists(init):
+                os.remove(init)
+        torch.cuda.empty_cache()
+        launches = phase_legacy(card)
+        t1 = time.perf_counter()
+        text = _example("serve_llm_torch.py")
+        check("served 10 requests / 120 tokens" in text
+              and "greedy determinism under batching: OK" in text,
+              f"serve_llm_torch.py: {text[-1500:]}")
+        print("  examples/serve_llm_torch.py: " + text.splitlines()[0]
+              + f" ({time.perf_counter() - t1:.1f} s with the start)")
+        t1 = time.perf_counter()
+        text = _example("train_100m_torch.py", "--steps",
+                        str(TRAIN_EXAMPLE_STEPS), "--unbroken")
+        check("[unbroken]" in text and "scaling-loss report" in text,
+              f"train_100m_torch.py: {text[-1500:]}")
+        for line in text.splitlines():
+            if line.startswith(("model:", "loss:", "[unbroken]",
+                                "scalana:")) or " tokens in " in line:
+                print(f"  train_100m_torch.py: {line.strip()}")
+        print(f"  examples/train_100m_torch.py --steps "
+              f"{TRAIN_EXAMPLE_STEPS} --unbroken: "
+              f"{time.perf_counter() - t1:.1f} s with the start  [{card}]")
+        t1 = time.perf_counter()
+        got = _dryrun_finish(procs, out)
+        procs = []
+        for r in sorted(got["recs"], key=lambda r: (r["mesh"], r["arch"],
+                                                    r["shape"],
+                                                    r["options"])):
+            roof = r["roofline"]
+            print(f"  dryrun {r['arch']} x {r['shape']} x {r['mesh']} "
+                  f"{r['options'] or ['baseline']}: {r['chips']} ranks, "
+                  f"traced {r['depth']['traced']} -> "
+                  f"{r['depth']['extrapolated_to']} in {r['lower_s']} s; "
+                  f"{r['cost']['dot_flops_per_device'] / 1e12:.2f} TFLOP, "
+                  f"{r['cost']['mem_bytes_per_device'] / 2**30:.1f} GiB "
+                  f"moved, {r['memory']['peak_bytes'] / 2**30:.2f} GiB peak "
+                  f"a rank; bounds compute {roof['compute_s']:.3f} s, memory "
+                  f"{roof['memory_s']:.3f} s, collective "
+                  f"{roof['collective_s']:.3f} s (data-sheet figures, not "
+                  f"measured)")
+        for r in got["plan"]:
+            print(f"  autotune {r['arch']} x {r['shape']} x {r['mesh']} -> "
+                  f"{r['recommended']} (bound {r['bound_s']:.3f} s, "
+                  f"{r['speedup']:.2f}x the baseline's)")
+        print(f"  dry runs: {time.perf_counter() - t0:.1f} s from their "
+              f"start, {time.perf_counter() - t1:.1f} s waited for")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4169,6 +4515,18 @@ def main() -> int:
             launches[n] += c
         print(f"[fsdp-sp] phase wall time "
               f"{time.perf_counter() - t_fsdp:.1f} s  [{FSDP_NOTE}; {card}]")
+        torch.cuda.empty_cache()
+        t_dry = time.perf_counter()
+        print(f"[dryrun] the dry run and the autotuner over "
+              f"{', '.join(DRYRUN_ARCHS)} x {', '.join(DRYRUN_SHAPES)} on "
+              f"both production meshes (baseline, seq_shard); the walk "
+              f"against {len(WALK_CELLS)} cells on the card at "
+              f"{WALK_LAYERS} layers; the unfused detect chain at "
+              f"{FLEET_SCALES[-1]} procs; the two examples; {card}")
+        for n, c in phase_dryrun(card).items():
+            launches[n] += c
+        print(f"[dryrun] phase wall time "
+              f"{time.perf_counter() - t_dry:.1f} s  [{card}]")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -20,8 +20,16 @@ kernels for tensors on a card, their plain torch versions on the CPU.
 Only (V,)-sized results and the <= k winners come back to the host.
 
 Precision is float64 by default and float32 when ``SCALANA_DETECT_F32``
-is set (checked per call, so tests can toggle it).  The JAX package's
-unfused legacy chain (``fused=False``) is not ported.
+is set (checked per call, so tests can toggle it).
+
+The JAX package's unfused legacy chain is here too, as plain torch ops
+on the views' device (it is jitted ``jnp`` there, not a kernel): the
+view entry points take ``fused=False`` (a per-scale merge, then the
+slope/flag tail; a sort median, flags and a stable top-k), and
+:func:`merge_matrix` / :func:`abnormal_arrays` are the parity entry
+points over one host matrix.  They share the fused ops' formulas
+(:mod:`repro_torch.kernels.detect_fused.ref`) and launch no kernel: the
+fused launch counters do not move.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import torch
 
 from repro_torch.core.detect import JIT_STRATEGIES
 from repro_torch.core.shard import TorchShardView
-from repro_torch.kernels.detect_fused import ops
+from repro_torch.kernels.detect_fused import ops, ref
 
 
 def _precision() -> Tuple[torch.dtype, np.dtype]:
@@ -55,6 +63,82 @@ def _idx(top: Sequence[int], device) -> torch.Tensor:
 
 def _host(*xs: torch.Tensor):
     return tuple(x.cpu().numpy() for x in xs)
+
+
+def merge_matrix(t: np.ndarray, strategy: str,
+                 var: Optional[np.ndarray] = None, device=None
+                 ) -> np.ndarray:
+    """Columnwise merge over one (n_procs, V) matrix on ``device`` ->
+    (V,) host.  All strategies are computed in one stacked pass;
+    ``strategy`` only selects the output row.  The parity entry point;
+    detection uses the fused ops."""
+    si = JIT_STRATEGIES.index(strategy)
+    _, ndt = _precision()
+    dev = TorchShardView.resolve_device(device)
+    td = _put(np.asarray(t, ndt)[None], ndt, dev)
+    vd = (torch.zeros_like(td) if var is None
+          else _put(np.asarray(var, ndt)[None], ndt, dev))
+    return _host(ref.merge_all_stack(td, vd)[si, 0])[0]
+
+
+def abnormal_arrays(t: np.ndarray, abnorm_thd: float, min_share: float,
+                    step_time: float, device=None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """The (P, V) abnormal-flag matrix and the (V,) typical (numpy's
+    median on the host), flags on ``device``.  Materialises the whole
+    flag matrix on the host: the parity entry point; detection keeps
+    the flags on the device (:func:`abnormal_topk`)."""
+    _, ndt = _precision()
+    dev = TorchShardView.resolve_device(device)
+    t_host = np.asarray(t, ndt)
+    typical = np.median(t_host, axis=0)
+    flags = ref.abnormal_flags(_put(t_host, ndt, dev),
+                               _put(typical, ndt, dev), float(abnorm_thd),
+                               float(min_share), float(step_time))
+    return flags.cpu().numpy(), typical
+
+
+# -- the unfused legacy chain ---------------------------------------------
+
+def _median_flags_topk(t, valid, abnorm_thd, min_share, step_time, k):
+    """Median + flags + a stable top-k over a (P, V) matrix: the
+    reference's ``_median_flags_topk`` (``valid`` None: every row live)
+    and its degraded-fleet variant (dead rows sort to ``+inf``, the
+    middle pair indexes live rows only, dead rows are zeroed and
+    unflagged).  Returns (order, scores, count, typical)."""
+    if valid is None:
+        srt = torch.sort(t, dim=0).values
+        P = t.shape[0]
+        typical = 0.5 * (srt[(P - 1) // 2] + srt[P // 2])
+        tm = t
+    else:
+        vcol = valid[:, None]
+        n_live = valid.sum().clamp(min=1)
+        srt = torch.sort(torch.where(vcol, t, float("inf")), dim=0).values
+        typical = 0.5 * (srt.index_select(0, ((n_live - 1) // 2).view(1))[0]
+                         + srt.index_select(0, (n_live // 2).view(1))[0])
+        tm = torch.where(vcol, t, 0.0)
+    flags = ref.abnormal_flags(tm, typical, abnorm_thd, min_share, step_time)
+    if valid is not None:
+        flags = flags & valid[:, None]
+    score = torch.where(flags, tm - typical, float("-inf"))
+    flat = score.T.reshape(-1)                         # vid-major
+    order = torch.sort(-flat, stable=True).indices[:k]
+    return order, flat[order], flags.sum(), typical
+
+
+def _abnormal_legacy(blocks, top, live, valid, abnorm_thd, min_share, k):
+    """The legacy abnormal chain over a view's device blocks: concatenate,
+    gather the live rows (padded), step time, median, flags, top-k."""
+    t = torch.cat(tuple(blocks), dim=0)
+    if live is not None:
+        t = t[live]
+    rows = t[:, top].sum(dim=1)
+    if valid is not None:
+        rows = torch.where(valid, rows, 0.0)
+    step = rows.max()
+    step = torch.where(step > 0.0, step, ref.STEP_EPS)
+    return _median_flags_topk(t, valid, abnorm_thd, min_share, step, k)
 
 
 def non_scalable_arrays(scales: Sequence[int], t: np.ndarray, var: np.ndarray,
@@ -102,7 +186,8 @@ def abnormal_topk(t: np.ndarray, abnorm_thd: float, min_share: float,
 def abnormal_topk_view(view: TorchShardView, n_vertices: int,
                        top: Sequence[int], abnorm_thd: float,
                        min_share: float, k: int,
-                       live_rows: Optional[np.ndarray] = None
+                       live_rows: Optional[np.ndarray] = None,
+                       fused: bool = True
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """Abnormal detection fed straight from a
     :class:`~repro_torch.core.shard.TorchShardView` — the online entry
@@ -119,7 +204,11 @@ def abnormal_topk_view(view: TorchShardView, n_vertices: int,
     (pad rows repeat row 0 and are masked out by ``valid``), so the
     launch shapes depend on the fleet size alone.  The returned
     ``procs`` index INTO ``live_rows`` (the caller maps back to global
-    procs), matching the host path's row-subset semantics."""
+    procs), matching the host path's row-subset semantics.
+
+    ``fused=True`` (the default) runs the one-launch fused op;
+    ``fused=False`` the legacy unfused chain as plain torch ops (the
+    baseline the parity tests pin the fused path against)."""
     _, ndt = _precision()
     n_procs = view.n_procs
     view.refresh(n_vertices, ndt)
@@ -132,10 +221,15 @@ def abnormal_topk_view(view: TorchShardView, n_vertices: int,
         pad[:n_live] = np.asarray(live_rows, np.int64)
         mask[:n_live] = True
         live, valid = _put(pad, np.int64, dev), _put(mask, bool, dev)
-    view.kernel_launches += 1
-    order, _, count, typical = ops.fused_abnormal(
-        view.time_blocks(), _idx(top, dev), float(abnorm_thd),
-        float(min_share), int(k), live=live, valid=valid)
+    if fused:
+        view.kernel_launches += 1
+        order, _, count, typical = ops.fused_abnormal(
+            view.time_blocks(), _idx(top, dev), float(abnorm_thd),
+            float(min_share), int(k), live=live, valid=valid)
+    else:
+        order, _, count, typical = _abnormal_legacy(
+            view.time_blocks(), _idx(top, dev).long(), live, valid,
+            float(abnorm_thd), float(min_share), int(k))
     n_flagged = int(count)
     order, typical = _host(order[:min(int(k), n_flagged)], typical)
     return order // n_procs, order % n_procs, typical, n_flagged
@@ -144,7 +238,8 @@ def abnormal_topk_view(view: TorchShardView, n_vertices: int,
 def non_scalable_views(scales: Sequence[int], views: Sequence[TorchShardView],
                        n_vertices: int, present: np.ndarray,
                        top: Sequence[int], ideal_slope: float,
-                       slope_margin: float, min_share: float, strategy: str
+                       slope_margin: float, min_share: float, strategy: str,
+                       fused: bool = True
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                                   np.ndarray]:
     """Non-scalable detection fed from per-scale
@@ -159,13 +254,25 @@ def non_scalable_views(scales: Sequence[int], views: Sequence[TorchShardView],
     ``fused_non_scalable_live`` launch over the cached (4, S-1, V) stack.
     Any write, re-pin, layout or dtype change bumps the revision and
     refills that scale's column.  The reference step time derives from
-    the merged "max" row at the final scale.  Returns the ``strategy``
-    row of (M (S, V), slope (V,), share (V,), flagged (V,)) as host
-    arrays — O(S·V), never O(P·V)."""
+    the merged "max" row at the final scale.  ``fused=False`` keeps the
+    legacy per-scale merge + slope/flag chain as plain torch ops (no
+    cache, no kernel).  Returns the ``strategy`` row of (M (S, V), slope
+    (V,), share (V,), flagged (V,)) as host arrays — O(S·V), never
+    O(P·V)."""
     si = JIT_STRATEGIES.index(strategy)
     tdt, ndt = _precision()
     for view in views:
         view.refresh(n_vertices, ndt)
+    if not fused:
+        dev = views[-1].device
+        M = torch.stack([ref.merge_blocks(v.time_blocks(), v.var_blocks())
+                         for v in views], dim=1)           # (4, S, V)
+        total_max = M[ref.IMAX, -1, _idx(top, dev).long()].sum()
+        slope, share, flagged = ref.slope_share_flag(
+            M, _put(np.log(np.asarray(scales, ndt)), ndt, dev),
+            _put(present, bool, dev), total_max, float(ideal_slope),
+            float(slope_margin), float(min_share))
+        return _host(M[si], slope[si], share[si], flagged[si])
     cols = []
     for v in views[:-1]:
         col = v.merged_column()

@@ -49,6 +49,7 @@ import dataclasses
 import operator
 import os
 import sys
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -92,6 +93,12 @@ class _Trace:
         self.table: List[Tuple[str, Tuple[Frame, ...]]] = []
         self.bwd: Optional[Tuple[Frame, ...]] = None   # running backward
         self.in_task = False
+        # the program's own references: storage -> live tensor objects,
+        # and the graph's last node when the last of them died
+        self.graph: Optional[torch.fx.Graph] = None
+        self.held: Dict[Any, int] = {}
+        self.dropped: Dict[Any, torch.fx.Node] = {}
+        self._held_ids: set = set()
 
     def forward_path(self) -> Tuple[Frame, ...]:
         return tuple((inst, False, it) for inst, it in self.stack)
@@ -137,6 +144,28 @@ class _Trace:
         self.bwd, self.in_task = None, False
         fx_traceback.set_stack_trace([])
 
+    def hold(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Watch the tensor objects the program holds: when the last one
+        on a storage dies (as it would free the storage running eagerly),
+        note the graph's last node (``core/fx_walk.py`` reads it)."""
+        from torch.multiprocessing.reductions import StorageWeakRef
+        for t in tensors:
+            if self.graph is None or id(t) in self._held_ids:
+                continue
+            try:
+                key = StorageWeakRef(t.untyped_storage())
+            except (NotImplementedError, RuntimeError):
+                continue                      # no storage (a wrapper)
+            self._held_ids.add(id(t))
+            self.held[key] = self.held.get(key, 0) + 1
+            weakref.finalize(t, self._release, id(t), key)
+
+    def _release(self, oid: int, key: Any) -> None:
+        self._held_ids.discard(oid)
+        self.held[key] -= 1
+        if not self.held[key] and self.graph is not None:
+            self.dropped[key] = self.graph._root.prev
+
 
 _TRACE: Optional[_Trace] = None
 
@@ -161,6 +190,7 @@ class _Tagger(TorchFunctionMode):
             fx_traceback.set_stack_trace([prev] if prev else [])
         if tr.bwd is None:             # a recompute's graph never runs
             tr.tag(out, src)
+        tr.hold(_flatten((args, kwargs, out))[0])
         return out
 
 
@@ -335,6 +365,9 @@ def trace(fn: Callable, *args, max_depth: int = 64) -> Traced:
     tr = _Trace()
 
     def flat(*tensors):
+        from torch.fx.experimental.proxy_tensor import get_proxy_mode
+        mode = get_proxy_mode()
+        tr.graph = None if mode is None else mode.tracer.graph
         with _Tagger(tr):
             out = fn(*rebuild(tensors))
         out_leaves, rb = _flatten(out)
@@ -347,6 +380,11 @@ def trace(fn: Callable, *args, max_depth: int = 64) -> Traced:
             gm = make_fx(flat, tracing_mode="fake")(*leaves)
     finally:
         _TRACE = None
+        tr.graph = None
+    # where the program dropped its last reference to each storage it
+    # held (the cost walk's liveness): nodes of the traced graph
+    gm.meta["dropped"] = {k: n for k, n in tr.dropped.items()
+                          if n.graph is gm.graph}
     b = _Builder(tr, max_depth)
     b.build(gm)
     return Traced(gm, b.psg, b.top, rebuild_out[0])

@@ -12,14 +12,20 @@ tracing (collectives are recorded, nothing moves): the scenario recorder
 traces rank 0 of 8 that way, and the production-mesh sweep
 (``tools_torch/cells_sweep.py``) a rank of the reference's deployment
 meshes, ``make_production_mesh``: 16x16 ``("data", "model")`` and
-2x16x16 ``("pod", "data", "model")`` over 256 and 512 ranks.
+2x16x16 ``("pod", "data", "model")`` over 256 and 512 ranks; the dry
+run (``launch/dryrun.py``) prices each such trace with
+:func:`cost_analysis_dict` and these figures.  A 16x16 mesh of H100s
+spans 32 nodes of eight cards (``core/fx_walk.py::NODE_CARDS``): the
+``data`` axis (stride 16) always crosses nodes, a 16-way ``model`` axis
+spans two, so a collective's time uses the link its group needs.
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
 import math
-from typing import Iterator, Optional
+import operator
+from typing import Dict, Iterator, Optional
 
 import torch
 import torch.distributed as dist
@@ -127,9 +133,28 @@ def mesh_chip_count(mesh) -> int:
     return int(mesh.size())
 
 
+def cost_analysis_dict(traced) -> Dict[str, float]:
+    """``{"flops", "bytes accessed"}`` of a traced program
+    (:class:`repro_torch.core.psg.Traced`): :func:`repro_torch.core.costs.
+    node_costs` summed over every ATen node of its graph, the port's
+    counterpart of XLA's aggregate ``cost_analysis()`` (elementwise and
+    transcendental FLOPs included, every operand and result counted)."""
+    from repro_torch.core import costs
+    flops = nbytes = 0.0
+    for node in traced.graph_module.graph.nodes:
+        if node.op != "call_function" or node.target is operator.getitem:
+            continue
+        f, b = costs.node_costs(node)
+        flops += f
+        nbytes += b
+    return {"flops": flops, "bytes accessed": nbytes}
+
+
 # NVIDIA H100 SXM data-sheet figures (per card, dense)
 PEAK_FLOPS_FP32 = 67e12         # FLOP/s, float32 outside the tensor cores
 PEAK_FLOPS_TF32 = 494.7e12      # FLOP/s, TF32 tensor cores
 PEAK_FLOPS_BF16 = 989e12        # FLOP/s, bf16 tensor cores
 HBM_BANDWIDTH = 3.35e12         # B/s, HBM3
-NVLINK_BANDWIDTH = 900e9        # B/s, NVLink 4, total per card
+NVLINK_BANDWIDTH = 450e9        # B/s a direction a card, NVLink 4 (900 both)
+# between nodes: one 400 Gb/s NDR InfiniBand port a card (DGX H100)
+IB_BANDWIDTH = 50e9             # B/s a direction a card

@@ -166,6 +166,58 @@ class Cell:
         with ax.use_rules(self.mesh, self.rules, self.options):
             return psg_lib.trace(self.fn, *self.args)
 
+    def materialize(self, device: torch.device | str, seed: int = 0
+                    ) -> Tuple[Pytree, ...]:
+        """Real inputs on ``device`` with the shapes and dtypes of
+        :attr:`args`: the parameters from ``model.init`` (the rank's
+        shards under the cell's rules), zero moments and step counts,
+        token ids (and frames or patches) drawn from ``seed``, and a zero
+        decode cache whose rows hold ``seq_len - 1`` positions (the step
+        writes the last slot and reads every one)."""
+        dev = torch.device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        cfg = self.model.cfg
+        with ax.use_rules(self.mesh, self.rules, self.options):
+            params = build_model(cfg, device=dev).init(gen)
+
+        def data(t):
+            if t.dtype.is_floating_point:
+                return torch.randn(t.shape, generator=gen,
+                                   device=dev).to(t.dtype)
+            return torch.randint(0, cfg.vocab_size, t.shape, generator=gen,
+                                 device=dev, dtype=t.dtype)
+
+        def zeros(t):
+            return torch.zeros(t.shape, dtype=t.dtype, device=dev)
+
+        def full(t):
+            return (zeros(t) if t.dtype.is_floating_point else torch.full(
+                t.shape, self.shape.seq_len - 1, dtype=t.dtype, device=dev))
+
+        def tree(fn, t):
+            leaves, rebuild = psg_lib._flatten(t)
+            return rebuild([fn(x) for x in leaves])
+
+        if self.kind == "train":
+            state, batch = self.args
+            real = (TrainState(params=params, opt=tree(zeros, state.opt),
+                               residual=None, step=zeros(state.step)),
+                    tree(data, batch))
+        elif self.kind == "prefill":
+            real = (params, tree(data, self.args[1]))
+        else:
+            real = (params, tree(full, self.args[1]), data(self.args[2]))
+        for a, b in zip(psg_lib._flatten(self.args)[0],
+                        psg_lib._flatten(real)[0]):
+            assert a.shape == b.shape and a.dtype == b.dtype, (a, b)
+        return real
+
+    def run(self, *args):
+        """The cell's step run eagerly on real inputs (:meth:`materialize`)
+        under its rules."""
+        with ax.use_rules(self.mesh, self.rules, self.options):
+            return self.fn(*args)
+
 
 def build_cell(arch: str, shape_name: str, mesh, *,
                run: Optional[RunConfig] = None,

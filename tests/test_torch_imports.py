@@ -86,7 +86,9 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.core",
            "repro_torch.data", "repro_torch.data.pipeline",
            "repro_torch.distributed", "repro_torch.distributed.axes",
            "repro_torch.launch.mesh", "repro_torch.launch.train",
-           "repro_torch.launch.scaling_profile"]
+           "repro_torch.launch.scaling_profile",
+           "repro_torch.launch.shardings", "repro_torch.core.fx_walk",
+           "repro_torch.launch.dryrun", "repro_torch.launch.autotune"]
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():

@@ -19,78 +19,24 @@ Exits non-zero if any cell fails.
 
 A trace of a full-width cell takes 5-40 s here, so the whole sweep is
 many minutes of one CPU core: a few GB of host memory, no tensor holds
-storage.  The dry run reuses :func:`sweep`.
+storage.  The loop (``sweep``, ``cut``, ``cells``) lives in
+``repro_torch/launch/dryrun.py``, whose dry run prices the same cells:
+``python -m repro_torch.launch.dryrun --arch all --shape all --mesh
+both`` writes each one's FLOPs, bytes, collectives, memory and H100
+roofline to ``artifacts/dryrun_torch/``.
 """
 from __future__ import annotations
 
 import argparse
 import sys
-import time
 from pathlib import Path
-from typing import Dict, Iterable, Iterator, List, Optional
+from typing import List, Optional
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import (ARCHS, SHAPES, get,  # noqa: E402
-                                 shape_applicable)
-from repro_torch.configs.base import ArchConfig  # noqa: E402
-from repro_torch.core.graph import COMM  # noqa: E402
-from repro_torch.launch import shardings  # noqa: E402
-from repro_torch.launch.mesh import (fake_process_group,  # noqa: E402
-                                     make_production_mesh, mesh_chip_count)
-
-MESHES = {"16x16": False, "2x16x16": True}          # name -> multi_pod
-OPTIONS = {"baseline": {}, "gather_weights": {"gather_weights": True},
-           "seq_shard": {"seq_shard": True}}
-
-
-def cut(cfg: ArchConfig, layers: int) -> ArchConfig:
-    """``cfg`` at its published widths with at most ``layers`` blocks (and
-    encoder blocks)."""
-    over = {"n_layers": min(cfg.n_layers, layers)}
-    if cfg.enc_layers:
-        over["enc_layers"] = min(cfg.enc_layers, layers)
-    return cfg.replace(**over)
-
-
-def cells(archs: Iterable[str], shapes: Iterable[str]):
-    """The applicable (arch, shape) pairs, in the order given."""
-    for arch in archs:
-        for shape in shapes:
-            if shape_applicable(get(arch), SHAPES[shape])[0]:
-                yield arch, shape
-
-
-def sweep(meshes: Iterable[str], archs: Iterable[str],
-          shapes: Iterable[str], options: Iterable[str],
-          layers: int = 2) -> Iterator[Dict]:
-    """Trace each cell; one record a cell: mesh, arch, shape, option,
-    ``ok``, the error where it failed, the trace's seconds and the number
-    of Comm vertices of its PSG."""
-    todo = list(cells(archs, shapes))
-    for mesh_name in meshes:
-        multi = MESHES[mesh_name]
-        with fake_process_group(512 if multi else 256):
-            mesh = make_production_mesh(multi_pod=multi, device="cpu")
-            assert mesh_chip_count(mesh) == (512 if multi else 256)
-            for arch, shape in todo:
-                for opt in options:
-                    rec = {"mesh": mesh_name, "arch": arch, "shape": shape,
-                           "option": opt}
-                    t0 = time.perf_counter()
-                    try:
-                        cell = shardings.build_cell(
-                            arch, shape, mesh, cfg=cut(get(arch), layers),
-                            options=OPTIONS[opt])
-                        traced = cell.lower()
-                        rec.update(ok=True, comms=len(
-                            traced.psg.by_kind(COMM)))
-                    except Exception as e:          # noqa: BLE001
-                        rec.update(ok=False,
-                                   error=f"{type(e).__name__}: {e}"[:300])
-                    rec["seconds"] = round(time.perf_counter() - t0, 2)
-                    yield rec
+from repro_torch.configs import ARCHS, SHAPES  # noqa: E402
+from repro_torch.launch.dryrun import MESHES, OPTIONS, sweep  # noqa: E402
 
 
 def main(argv: Optional[List[str]] = None) -> int:
