@@ -14,16 +14,23 @@ that step (a contracted Comp vertex covers a run of nodes, a Loop vertex
 every iteration), one sample per sampled step.  Per-vertex performance
 vectors combine this measured channel with the static counters
 (flops/bytes from :mod:`repro_torch.core.costs`), the PAPI analogue.
+
+Its own times are host spans (:mod:`repro_torch.core.spans`): a step's
+entry in ``step_times`` is its ``profiler.eager_step`` or
+``profiler.sampled_step`` span, from entry to return; a vertex's time in
+a sampled step is its ``profiler.vertex:<vid>`` spans (one a stretch of
+its nodes, its fence included); ``trace_s`` is the ``profiler.trace``
+span.  Under a ``torch.profiler`` these are ranges of its trace.
 """
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import psg as psg_lib
+from repro_torch.core import spans
 from repro_torch.core.contraction import contract
 from repro_torch.core.graph import PerfVector
 
@@ -35,7 +42,9 @@ def _fence(device: Optional[torch.device]) -> None:
 
 class _TimedRun(torch.fx.Interpreter):
     """Runs the traced graph, timing each stretch of nodes that belongs to
-    one top-level vertex; the values die after their last use."""
+    one top-level vertex by a ``profiler.vertex:<vid>`` span from the
+    switch to it to the fence after it; the values die after their last
+    use."""
 
     def __init__(self, gm: torch.fx.GraphModule,
                  segment: Dict[torch.fx.Node, int],
@@ -45,28 +54,31 @@ class _TimedRun(torch.fx.Interpreter):
         self.device = device
         self.times: Dict[int, float] = {}
         self._open: Optional[int] = None
-        self._t0 = 0.0
+        self._span: Optional[spans.span] = None
 
     def _close(self) -> None:
-        _fence(self.device)
-        now = time.perf_counter()
-        if self._open is not None:
+        with spans.span("profiler.fence"):
+            _fence(self.device)
+        if self._span is not None:
             self.times[self._open] = (self.times.get(self._open, 0.0)
-                                      + now - self._t0)
-        self._t0 = now
+                                      + self._span.close())
+            self._span = None
 
     def run_node(self, n: torch.fx.Node) -> Any:
         seg = self.segment.get(n)
         if seg is not None and seg != self._open:
             self._close()
             self._open = seg
+            self._span = spans.span(f"profiler.vertex:{seg}",
+                                    "profiler.vertex").open()
         return super().run_node(n)
 
     def timed(self, *args) -> Any:
         self._close()                       # nothing earlier counts
-        out = self.run(*args)
-        self._close()
-        return out
+        try:
+            return self.run(*args)
+        finally:
+            self._close()
 
 
 class GraphProfiler:
@@ -80,11 +92,16 @@ class GraphProfiler:
                  sample_every: int = 16, max_loop_depth: int = 10):
         self.fn = fn
         self.sample_every = max(int(sample_every), 1)
-        t0 = time.perf_counter()
-        self.traced = psg_lib.trace(fn, *example_args)
-        self.trace_s = time.perf_counter() - t0
-        self.psg_full = self.traced.psg
-        self.psg, self.mapping = contract(self.psg_full, max_loop_depth)
+        with spans.collect() as totals:
+            with spans.span("profiler.trace") as sp:
+                self.traced = psg_lib.trace(fn, *example_args)
+            self.trace_s = sp.seconds
+            self.psg_full = self.traced.psg
+            with spans.span("profiler.contract"):
+                self.psg, self.mapping = contract(self.psg_full,
+                                                  max_loop_depth)
+        # the spans of the set-up: the trace, make_fx, the PSG, contraction
+        self.trace_spans = spans.record("profiler.init", totals)
         # ATen node -> contracted top-level vertex
         self._segment = {n: self.mapping.get(vid, self.psg.root)
                          for n, vid in self.traced.top_vertex.items()}
@@ -100,29 +117,32 @@ class GraphProfiler:
 
     # ------------------------------------------------------------------
     def step(self, *args) -> Any:
-        """Run one step; every K-th step is the instrumented sampled run."""
+        """Run one step; every K-th step is the instrumented sampled run.
+        Its ``step_times`` entry is the whole call."""
         self.total_steps += 1
         if self.total_steps % self.sample_every == 0:
-            return self._sampled_step(*args)
-        device = self._device(self.traced.flat_args(*args))
-        _fence(device)
-        t0 = time.perf_counter()
-        out = self.fn(*args)
-        _fence(device)
-        self.step_times.append(time.perf_counter() - t0)
+            with spans.span("profiler.sampled_step") as sp:
+                out = self._sampled_step(*args)
+        else:
+            with spans.span("profiler.eager_step") as sp:
+                device = self._device(self.traced.flat_args(*args))
+                _fence(device)
+                out = self.fn(*args)
+                _fence(device)
+        self.step_times.append(sp.seconds)
         return out
 
     def _sampled_step(self, *args) -> Any:
         self.sampled_steps += 1
-        flat = self.traced.flat_args(*args)
-        run = _TimedRun(self.traced.graph_module, self._segment,
-                        self._device(flat))
-        t0 = time.perf_counter()
+        with spans.span("profiler.interpreter"):
+            flat = self.traced.flat_args(*args)
+            run = _TimedRun(self.traced.graph_module, self._segment,
+                            self._device(flat))
         outs = run.timed(*flat)
-        self.step_times.append(time.perf_counter() - t0)
-        for vid, dt in run.times.items():
-            self._vertex_times.setdefault(vid, []).append(dt)
-        return self.traced.rebuild_out(outs)
+        with spans.span("profiler.rebuild"):
+            for vid, dt in run.times.items():
+                self._vertex_times.setdefault(vid, []).append(dt)
+            return self.traced.rebuild_out(outs)
 
     # ------------------------------------------------------------------
     def perf_vectors(self) -> Dict[int, PerfVector]:

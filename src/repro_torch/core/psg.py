@@ -56,7 +56,7 @@ import torch
 import torch.fx.traceback as fx_traceback
 from torch.overrides import TorchFunctionMode
 
-from repro_torch.core import costs
+from repro_torch.core import costs, spans
 from repro_torch.core.graph import (BRANCH, COMM, COMP, LOOP, PSG, ROOT,
                                     Vertex)
 
@@ -376,17 +376,20 @@ def trace(fn: Callable, *args, max_depth: int = 64) -> Traced:
 
     _TRACE = tr
     try:
-        with fx_traceback.preserve_node_meta():
+        # the span around make_fx, never inside it: a record_function in
+        # the traced code is a marker node of the graph
+        with spans.span("psg.make_fx"), fx_traceback.preserve_node_meta():
             gm = make_fx(flat, tracing_mode="fake")(*leaves)
     finally:
         _TRACE = None
         tr.graph = None
-    # where the program dropped its last reference to each storage it
-    # held (the cost walk's liveness): nodes of the traced graph
-    gm.meta["dropped"] = {k: n for k, n in tr.dropped.items()
-                          if n.graph is gm.graph}
-    b = _Builder(tr, max_depth)
-    b.build(gm)
+    with spans.span("psg.build"):
+        # where the program dropped its last reference to each storage it
+        # held (the cost walk's liveness): nodes of the traced graph
+        gm.meta["dropped"] = {k: n for k, n in tr.dropped.items()
+                              if n.graph is gm.graph}
+        b = _Builder(tr, max_depth)
+        b.build(gm)
     return Traced(gm, b.psg, b.top, rebuild_out[0])
 
 

@@ -23,7 +23,8 @@ all-reduce of their own).  Without a mesh it runs no collective.
 
 ``Trainer`` is the twin of the reference's: data, the step, checkpoints
 and the ScalAna hooks (the sampled ``GraphProfiler``, per-step wall
-times, an injected per-rank delay for case studies).  Its checkpoints
+times, the host spans of :mod:`repro_torch.core.spans` a ``train``
+call, an injected per-rank delay for case studies).  Its checkpoints
 are the reference's, logically unsharded: under a ``model`` axis every
 parameter, moment and residual leaf is gathered whole before a save
 (:func:`whole_state`), one rank writes, and a restore loads the whole
@@ -45,6 +46,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import SHAPES
 from repro_torch.configs import get as get_config
 from repro_torch.configs.base import ArchConfig, RunConfig, ShapeConfig
+from repro_torch.core import spans
 from repro_torch.core.profiler import GraphProfiler
 from repro_torch.core.psg import scan
 from repro_torch.data import make_dataset
@@ -372,8 +374,9 @@ class Trainer:
                      if run.checkpoint_dir else None)
         # ScalAna channels
         self.profiler: Optional[GraphProfiler] = None
-        self.step_wall_times: list = []
+        self.step_wall_times: list = []    # the `trainer.step` spans
         self.metrics_log: list = []
+        self.span_log: list = []           # a span total a train() call
         # case-study hook: {rank: extra seconds} host-side injected delay
         self.inject_delay = dict(inject_delay or {})
 
@@ -423,13 +426,15 @@ class Trainer:
         """Checkpoint ``state`` whole at ``step`` (the gather under the
         rules, on every rank); ``last`` writes it blocking and holds every
         rank at a barrier until it is committed."""
-        with self._rules():
-            whole = whole_state(state, self.model.specs)
-        if self._writes():
-            self.ckpt.save(step, state_to_tree(whole), blocking=last)
-        del whole
-        if last and self.mesh is not None and dist.get_world_size() > 1:
-            dist.barrier()
+        with spans.span("trainer.checkpoint"):
+            with self._rules():
+                whole = whole_state(state, self.model.specs)
+            if self._writes():
+                self.ckpt.save(step, state_to_tree(whole), blocking=last)
+            del whole
+            if (last and self.mesh is not None
+                    and dist.get_world_size() > 1):
+                dist.barrier()
 
     def restore(self, state: TrainState):
         """(step, state) from the latest checkpoint, its whole leaves cut
@@ -460,46 +465,57 @@ class Trainer:
               state: Optional[TrainState] = None,
               resume: bool = True,
               step_timeout_s: float = 0.0) -> TrainState:
-        num_steps = num_steps or self.run.total_steps
-        start_step = 0
-        if state is None:
-            state = self.init_state()
-            if resume and self.ckpt is not None:
-                restored = self.restore(state)
-                if restored is not None:
-                    start_step, state = restored
+        """Run ``num_steps`` steps; the call's span totals (gc pauses
+        included) go to :attr:`span_log` at its end.  The loop runs in
+        this frame: a frame around it would hold the call's first state
+        to the end."""
+        with spans.collect() as totals, spans.span("trainer.train"):
+            num_steps = num_steps or self.run.total_steps
+            start_step = 0
+            if state is None:
+                state = self.init_state()
+                if resume and self.ckpt is not None:
+                    restored = self.restore(state)
+                    if restored is not None:
+                        start_step, state = restored
 
-        if self.run.scalana and self.profiler is None:
-            batch0 = self._put_batch(self.dataset.batch(start_step))
-            self.enable_scalana(state, batch0)
+            if self.run.scalana and self.profiler is None:
+                batch0 = self._put_batch(self.dataset.batch(start_step))
+                self.enable_scalana(state, batch0)
 
-        step_fn = (self.profiler.step if self.profiler is not None
-                   else self.train_step_fn)
-
-        rank = dist.get_rank() if dist.is_initialized() else 0
-        with self._rules():
-            for i in range(start_step, start_step + num_steps):
-                batch = self._put_batch(self.dataset.batch(i))
-                t0 = time.perf_counter()
-                if self.inject_delay.get(rank):
-                    time.sleep(self.inject_delay[rank])  # straggler study
-                state, metrics = step_fn(state, batch)
-                _fence(self.device)
-                dt = time.perf_counter() - t0
-                self.step_wall_times.append(dt)
-                if step_timeout_s and dt > step_timeout_s:
-                    # straggler mitigation: surface instead of hanging
-                    self.metrics_log.append({"step": i, "timeout": dt})
-                self.metrics_log.append(
-                    {"step": i,
-                     "loss": float(metrics["loss"]),
-                     "grad_norm": float(metrics.get("grad_norm", 0.0)),
-                     "wall_s": dt})
-                if (self.ckpt is not None and self.run.checkpoint_every
-                        and (i + 1) % self.run.checkpoint_every == 0):
-                    self._save(i + 1, state, last=False)
-        if self.ckpt is not None:
-            self._save(start_step + num_steps, state, last=True)
+            step_fn = (self.profiler.step if self.profiler is not None
+                       else self.train_step_fn)
+            rank = dist.get_rank() if dist.is_initialized() else 0
+            with self._rules():
+                for i in range(start_step, start_step + num_steps):
+                    with spans.span("trainer.batch"):
+                        np_batch = self.dataset.batch(i)
+                    with spans.span("trainer.put_batch"):
+                        batch = self._put_batch(np_batch)
+                    with spans.span("trainer.step") as step:
+                        if self.inject_delay.get(rank):
+                            time.sleep(self.inject_delay[rank])  # stragglers
+                        state, metrics = step_fn(state, batch)
+                        _fence(self.device)
+                    dt = step.seconds
+                    self.step_wall_times.append(dt)
+                    with spans.span("trainer.readback"):
+                        if step_timeout_s and dt > step_timeout_s:
+                            # straggler mitigation: surface, don't hang
+                            self.metrics_log.append({"step": i,
+                                                     "timeout": dt})
+                        self.metrics_log.append(
+                            {"step": i,
+                             "loss": float(metrics["loss"]),
+                             "grad_norm": float(metrics.get("grad_norm",
+                                                            0.0)),
+                             "wall_s": dt})
+                    if (self.ckpt is not None and self.run.checkpoint_every
+                            and (i + 1) % self.run.checkpoint_every == 0):
+                        self._save(i + 1, state, last=False)
+            if self.ckpt is not None:
+                self._save(start_step + num_steps, state, last=True)
+        self.span_log.append(spans.record("trainer.train", totals))
         return state
 
     # ------------------------------------------------------------------
