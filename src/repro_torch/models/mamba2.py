@@ -170,13 +170,16 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     st = torch.einsum("bcqh,bcqn,bcqhp->bchnp",
                       decay_to_end * dtc, Bc, xc)
 
-    # inter-chunk recurrence over nc: h_c = a_c h_{c-1} + st_c
+    # inter-chunk recurrence over nc: h_c = a_c h_{c-1} + st_c.  The chunk
+    # views are taken once: the backward of unbind is one stack, where an
+    # index per chunk (a select) writes a zero gradient the size of st.
     a = torch.exp(s[:, :, -1, :])                            # (B,nc,H)
-    h = torch.zeros_like(st[:, 0])
+    a_cs, st_cs = a.unbind(1), st.unbind(1)
+    h = torch.zeros_like(st_cs[0])
     entering = []                   # state entering chunk c = h_{c-1}
-    for c in range(nc):
+    for a_c, st_c in zip(a_cs, st_cs):
         entering.append(h)
-        h = h * a[:, c, :, None, None] + st[:, c]
+        h = h * a_c[:, :, None, None] + st_c
     h_prev = torch.stack(entering, dim=1)                    # (B,nc,H,N,P)
 
     # inter-chunk output: Y[i] += C_i . (exp(s_i) h_prev)
